@@ -1,0 +1,70 @@
+"""CLI: segment lipid droplets and build a report — flag-compatible with the
+reference `quantify_droplets_batch.py` (same names, defaults and output
+tree), running the PyTorch/CUDA port.
+
+    python -m unetdc_tpu_torch.cli.quantify_droplets_batch --img_dir ... \
+        --ckpt_path best_UNetDC_focal_model.pth --out_dir quant_results \
+        --batch 8 --prob_thresh 0.3 --min_area 1 [--px_per_micron F]
+        [--save_overlays] [--background_radius 50] [--skip_excel]
+        [--skip_histogram] [--precision {bf16,f32}] [--max_labels N]
+        [--device {cuda,cpu}]
+
+Runs on the GPU unless `--device cpu` is given; without a GPU it fails
+rather than fall back to the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("Segment lipid droplets and build a report")
+    p.add_argument("--img_dir", required=True)
+    p.add_argument("--ckpt_path", default="best_UNetDC_focal_model.pth")
+    p.add_argument("--out_dir", default="quant_results")
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--prob_thresh", type=float, default=0.3)
+    p.add_argument("--min_area", type=int, default=1,
+                   help="ignore objects smaller than this (pixels²)")
+    p.add_argument("--px_per_micron", type=float,
+                   help="pixels per micron for physical-unit columns")
+    p.add_argument("--save_overlays", action="store_true")
+    p.add_argument("--background_radius", type=int, default=50,
+                   help="radius for rolling ball background correction")
+    p.add_argument("--skip_excel", action="store_true",
+                   help="skip generation of the Excel workbook")
+    p.add_argument("--skip_histogram", action="store_true",
+                   help="skip histogram plot generation")
+    p.add_argument("--precision", choices=["bf16", "f32"], default="bf16",
+                   help="model compute precision")
+    p.add_argument("--max_labels", type=int, default=4096,
+                   help="per-image component capacity of the droplet tables")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where to run (default: the GPU)")
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+
+    from unetdc_tpu_torch.pipelines.engine import load_engine
+    from unetdc_tpu_torch.pipelines.quantify_batch import BatchQuantifyPipeline
+
+    engine = load_engine(args.ckpt_path, fast=(args.precision == "bf16"),
+                         max_labels=args.max_labels, device=args.device)
+    pipe = BatchQuantifyPipeline(
+        engine, args.out_dir, batch=args.batch, prob_thresh=args.prob_thresh,
+        min_area=args.min_area, px_per_micron=args.px_per_micron,
+        save_overlays=args.save_overlays,
+        background_radius=args.background_radius)
+    pipe.run(args.img_dir)
+    pipe.write_reports(skip_excel=args.skip_excel,
+                       skip_histogram=args.skip_histogram)
+    # stdout contract consumed by the GUIs
+    print("\n All done. Outputs are in ", pipe.out_dir)
+    return pipe
+
+
+if __name__ == "__main__":
+    main()

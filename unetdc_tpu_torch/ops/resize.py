@@ -1,0 +1,62 @@
+"""cv2-exact uint8 INTER_LINEAR resize.
+
+Every cv2.resize call of the reference passes the interpolation flag as the
+third positional argument (`dst`), so cv2 uses its default INTER_LINEAR
+everywhere; the golden outputs are bilinear. This is the port of the JAX
+package's `ops/resize.py::resize_linear_u8_cv2exact`: 11-bit fixed-point
+coefficients with the SIMD path's intermediate truncations, in int32,
+
+    row = a0 * s[x0] + a1 * s[x1]
+    out = (((b0 * (row0 >> 4)) >> 16) + ((b1 * (row1 >> 4)) >> 16) + 2) >> 2
+
+with the source taps picked by `index_select` (the TPU version used one-hot
+matmuls).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+
+def _coeffs_fixed(src: int, dst: int):
+    """cv2 INTER_LINEAR source indices + 11-bit fixed-point coefficients."""
+    x0s = np.empty(dst, np.int32)
+    a1 = np.empty(dst, np.int32)
+    scale = src / dst
+    for d in range(dst):
+        sx = (d + 0.5) * scale - 0.5
+        x0 = int(np.floor(sx))
+        a1[d] = int(np.rint((sx - x0) * 2048.0))
+        x0s[d] = x0
+    x0c = np.clip(x0s, 0, src - 1)
+    x1c = np.clip(x0s + 1, 0, src - 1)
+    return x0c, x1c, 2048 - a1, a1
+
+
+def resize_linear_u8_cv2exact(img: torch.Tensor, out_hw: Tuple[int, int]
+                              ) -> torch.Tensor:
+    """(..., h, w) uint8 -> (..., oh, ow) uint8, bit-exact with this cv2
+    build on the pipeline's paths (0/1 masks at any size, resizes to 512).
+    A scale-1 resize is exactly the identity in cv2's fixed point and is
+    returned as is."""
+    oh, ow = out_hw
+    h, w = img.shape[-2:]
+    if (oh, ow) == (h, w):
+        return img
+    dev = img.device
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    x0c, x1c, ax0, ax1 = (t(a) for a in _coeffs_fixed(w, ow))
+    y0c, y1c, by0, by1 = (t(a) for a in _coeffs_fixed(h, oh))
+    s = img.to(torch.int32)
+    row = (s.index_select(-1, x0c.long()) * ax0
+           + s.index_select(-1, x1c.long()) * ax1)        # (..., h, ow) < 2^20
+    r0 = row.index_select(-2, y0c.long()) >> 4
+    r1 = row.index_select(-2, y1c.long()) >> 4
+    out = (((by0[:, None] * r0) >> 16) + ((by1[:, None] * r1) >> 16) + 2) >> 2
+    return out.to(torch.uint8)

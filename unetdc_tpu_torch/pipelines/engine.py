@@ -1,0 +1,206 @@
+"""The flagship inference engine: one megastep from raw uint8 images to
+droplet tables, on the card.
+
+Port of the JAX package's `pipelines/engine.py::QuantifyEngine`:
+    rolling ball -> cv2-exact resize to img_size -> BN-folded UNetDC
+    (fused kernels K1, K2) -> threshold -> cv2-exact mask resize back to
+    the original size -> connected components, min-area sieve and
+    regionprops tables (kernel K3).
+Only uint8 images go in; masks and fixed-size droplet property tables come
+out. The JAX engine packs every output into one bit-packed buffer to save
+transfer calls on its TPU link; that is not needed here, so outputs travel
+as they are.
+
+The engine's `megastep_ms` records the card's time for each batch, from
+CUDA events around the megastep (it includes the per-sweep host syncs of
+the component propagation).
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from unetdc_tpu_torch.device import resolve_device
+from unetdc_tpu_torch.models.unet import UNetDC, fold_batchnorm
+from unetdc_tpu_torch.models.unet_fast import build_fast_params, forward_folded
+from unetdc_tpu_torch.ops import fused_conv
+from unetdc_tpu_torch.ops.component_tables import (component_tables,
+                                                   component_tables_plain)
+from unetdc_tpu_torch.ops.connected_components import quantify_mask_batch
+from unetdc_tpu_torch.ops.resize import resize_linear_u8_cv2exact
+from unetdc_tpu_torch.ops.rolling_ball import rolling_ball_correction
+
+
+def grayscale_view(imgs_u8: np.ndarray) -> np.ndarray:
+    """A (B,H,W) single-channel view when every pixel of the (B,H,W,3)
+    batch has all channels equal, else the input unchanged. The engine
+    broadcasts the channel back to 3 before the model, so results are
+    identical; the upload and the preprocess are a third of the size."""
+    if imgs_u8.ndim != 4 or imgs_u8.shape[-1] != 3:
+        return imgs_u8
+    c0 = imgs_u8[..., 0]
+    if np.array_equal(c0, imgs_u8[..., 1]) and \
+            np.array_equal(c0, imgs_u8[..., 2]):
+        return np.ascontiguousarray(c0)
+    return imgs_u8
+
+
+class QuantifyEngine:
+    """Batch segmentation + quantification on one device.
+
+    Args:
+      state_dict: reference UNetDC/UNet state dict (BatchNorm is folded
+        once here).
+      model_cls: UNetDC (default) or UNet.
+      img_size: network input size (512 in the reference CLI).
+      compute_dtype: torch.bfloat16 (default) or torch.float32.
+      max_labels: per-image component capacity of the droplet tables.
+      device: "cuda" (default) or "cpu"; CUDA must be present if asked for.
+      kernels: True runs the fused kernels K1, K2, K3; False runs their
+        plain PyTorch versions (the reference path for checking them).
+    """
+
+    def __init__(self, state_dict, model_cls=UNetDC, img_size: int = 512,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 max_labels: int = 4096, device="cuda",
+                 kernels: bool = True):
+        self.device = resolve_device(device)
+        self.img_size = img_size
+        self.max_labels = max_labels
+        self.compute_dtype = compute_dtype
+        self._dilations = tuple(model_cls.dilations)
+        self.params = build_fast_params(fold_batchnorm(state_dict),
+                                        compute_dtype, self.device)
+        if kernels:
+            self._conv_pool = fused_conv.conv3x3_relu_pool
+            self._head = fused_conv.dec1_head
+            self._tables = component_tables
+        else:
+            self._conv_pool = fused_conv.conv3x3_relu_pool_plain
+            self._head = fused_conv.dec1_head_plain
+            self._tables = component_tables_plain
+        self.megastep_ms: List[float] = []
+
+    # ------------------------------------------------------------------
+    def forward_probs(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S, S, 3) float in [0, 1] -> (B, S, S, 1) f32 probabilities."""
+        return forward_folded(self.params, x.to(self.device), self._dilations,
+                              self._conv_pool, self._head)
+
+    def _preprocess(self, imgs_u8: torch.Tensor, background_radius: int,
+                    apply_bg: bool) -> torch.Tensor:
+        """(B,H,W,3) or grayscale (B,H,W) uint8 -> (B,S,S,3) f32 in [0,1].
+        Every step is per channel, so a grayscale batch is processed once
+        and broadcast to 3 channels at the end."""
+        size = self.img_size
+        gray = imgs_u8.dim() == 3
+        planes = imgs_u8[:, None] if gray else imgs_u8.permute(0, 3, 1, 2)
+        if apply_bg:
+            planes = rolling_ball_correction(planes, background_radius)
+        x = resize_linear_u8_cv2exact(planes, (size, size))
+        x = (x.to(torch.float32) / 255.0).permute(0, 2, 3, 1)
+        if gray:
+            x = x.expand(-1, -1, -1, 3)
+        return x
+
+    def _megastep(self, imgs_u8: torch.Tensor, prob_thresh: float,
+                  min_area: int, out_hw: Tuple[int, int],
+                  background_radius: int, apply_bg: bool,
+                  max_labels: int) -> Dict[str, torch.Tensor]:
+        x = self._preprocess(imgs_u8, background_radius, apply_bg)
+        probs = self.forward_probs(x)
+        mask = (probs[..., 0] > prob_thresh).to(torch.uint8)
+        masks = resize_linear_u8_cv2exact(mask, tuple(out_hw))
+        stats = quantify_mask_batch(masks, min_area, max_labels,
+                                    connectivity=1, tables=self._tables)
+        return {"mask": masks, **stats}
+
+    # ------------------------------------------------------------------
+    def dispatch_batch(self, imgs_u8: np.ndarray, out_hw: Tuple[int, int],
+                       prob_thresh: float = 0.3, min_area: int = 1,
+                       background_radius: int = 50, apply_bg: bool = True):
+        """Run one megastep on (B,H,W,3) RGB or (B,H,W) grayscale uint8;
+        returns a handle for `fetch_batch` (device results + what an
+        overflow re-run needs)."""
+        x = torch.from_numpy(np.ascontiguousarray(imgs_u8)).to(self.device)
+        ctx = (x, float(prob_thresh), int(min_area), int(background_radius),
+               bool(apply_bg))
+        return self._run(ctx, tuple(out_hw), self.max_labels), ctx
+
+    def _run(self, ctx, out_hw, max_labels):
+        x, thresh, min_area, radius, apply_bg = ctx
+        timed = self.device.type == "cuda"
+        if timed:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        out = self._megastep(x, thresh, min_area, out_hw, radius, apply_bg,
+                             max_labels)
+        if timed:
+            ev[1].record()
+            out["_events"] = ev
+        return out
+
+    def _to_host(self, out) -> Dict[str, np.ndarray]:
+        ev = out.pop("_events", None)
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        if ev is not None:
+            ev[1].synchronize()
+            self.megastep_ms.append(ev[0].elapsed_time(ev[1]))
+        return host
+
+    def fetch_batch(self, handle, out_hw: Tuple[int, int]
+                    ) -> Dict[str, np.ndarray]:
+        """Host numpy results of a dispatched batch: 'mask' (B,H,W) uint8,
+        'count', 'total', 'area' and the coordinate-sum tables. A batch
+        whose component count exceeds max_labels is re-run at the next
+        doubled cap that fits (the reference's skimage path has no cap)."""
+        if isinstance(handle, dict):  # already-split results: no re-run
+            out, ctx = handle, None
+        else:
+            out, ctx = handle
+        host = self._to_host(dict(out))
+        total_max = int(host["total"].max())
+        if total_max > self.max_labels:
+            if ctx is None:
+                raise RuntimeError(
+                    f"image has {total_max} components, exceeding "
+                    f"max_labels={self.max_labels}; rebuild the engine "
+                    "with a larger max_labels")
+            cap = max(2 * self.max_labels, 2)
+            while cap < total_max:
+                cap *= 2
+            print(f"unetdc_tpu_torch: batch has an image with {total_max} "
+                  f"components (> max_labels={self.max_labels}); re-running "
+                  f"it at cap {cap}", file=sys.stderr)
+            host = self._to_host(self._run(ctx, tuple(out_hw), cap))
+            assert int(host["total"].max()) <= cap
+        return host
+
+    def run_batch(self, imgs_u8: np.ndarray, out_hw: Tuple[int, int],
+                  prob_thresh: float = 0.3, min_area: int = 1,
+                  background_radius: int = 50, apply_bg: bool = True
+                  ) -> Dict[str, np.ndarray]:
+        """Synchronous host entry: uint8 batch -> numpy results."""
+        return self.fetch_batch(
+            self.dispatch_batch(imgs_u8, out_hw, prob_thresh, min_area,
+                                background_radius, apply_bg), out_hw)
+
+
+def load_engine(ckpt_path: str, fast: bool = True, model_cls=UNetDC,
+                max_labels: int = 4096, device="cuda",
+                kernels: bool = True) -> QuantifyEngine:
+    """Engine from a reference `.pth` checkpoint. `fast` selects bf16
+    (default) over f32."""
+    from unetdc_tpu_torch.checkpoint.convert import load_pth_state_dict
+
+    if not str(ckpt_path).endswith(".pth"):
+        raise ValueError(f"{ckpt_path}: the port loads reference .pth "
+                         "checkpoints")
+    return QuantifyEngine(load_pth_state_dict(ckpt_path), model_cls=model_cls,
+                          compute_dtype=torch.bfloat16 if fast
+                          else torch.float32, max_labels=max_labels,
+                          device=device, kernels=kernels)
