@@ -13,7 +13,9 @@ Phases, each printing one JSON line:
                just before and read just after; the artifact tree and the
                droplet tables are checked (scipy labels the written masks);
   4. kernels — K1, K2, K3 at the shapes the CLI run gave them: agreement
-               with their plain PyTorch versions, times, bounds, launches;
+               with their plain PyTorch versions, times, bounds, launches,
+               the fraction of the bound reached and the time over the
+               library call's; K1 and K2 (bf16) must beat the library call;
   5. masks   — the same images through the f32 kernel path and the plain
                f32 path (TF32 off): every pixel whose 0.3 decision differs
                must sit within 1e-3 of the threshold, and at most 1e-5 of
@@ -519,9 +521,17 @@ def main() -> int:
             check(launches.get(k, 0) >= 1, f"{k} never launched")
 
         rows = kernel_rows(pipe.engine, img_dir, work / "out", launches)
+        for r in rows:
+            r["frac_of_bound"] = r["bound_ms"] / r["ms"]
+            r["x_library"] = r["ms"] / r["library_ms"]
         emit({"phase": "stages",
               "ms": stage_times(pipe.engine, img_dir)})
         emit({"kernels": rows})
+        # the redesigned conv kernels must beat their cuDNN yardsticks
+        for r in rows[:2]:
+            check(r["ms"] < r["library_ms"],
+                  f"{r['name']}: {r['ms']:.3f} ms, slower than the library "
+                  f"call ({r['library_ms']:.3f} ms)")
 
         run_cli(img_dir, ckpt, work / "k32", precision="f32")
         run_plain(img_dir, ckpt, work / "p32", "f32")

@@ -4,7 +4,7 @@ These tests need an NVIDIA GPU and the CUDA toolkit (the kernels are built
 from `unetdc_tpu_torch/csrc` at first use); on a host without a card they
 skip. Run them with `python -m pytest -m cuda tests/test_torch_kernels_cuda.py`.
 Shapes are deliberately not multiples of the kernels' tiles, so the ragged
-edges are covered.
+edges are covered, and the main path's shapes (batch 8 at 512x512) run too.
 
 Tolerances: f32 kernels differ from cuDNN f32 only in summation order
 (K1 atol 2e-5 / rtol 1e-5, K2 atol 3e-6 / rtol 1e-5, as the JAX package
@@ -32,12 +32,11 @@ def _t(a, dev, dtype):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k1_matches_plain(dev, dtype):
+def _k1_case(dev, dtype, B, H, W, seed=0):
     from unetdc_tpu_torch.ops import fused_conv as fc
 
-    r = np.random.RandomState(0)
-    x = _t(np.maximum(r.randn(2, 40, 56, 64), 0), dev, dtype)
+    r = np.random.RandomState(seed)
+    x = _t(np.maximum(r.randn(B, H, W, 64), 0), dev, dtype)
     w = _t(r.randn(3, 3, 64, 64) * 0.1, dev, dtype)
     b = _t(r.randn(64) * 0.1, dev, torch.float32)
     y, p = fc.conv3x3_relu_pool(x, w, b)
@@ -49,12 +48,10 @@ def test_k1_matches_plain(dev, dtype):
     torch.testing.assert_close(p.float(), pr.float(), **tol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k2_matches_plain(dev, dtype):
+def _k2_case(dev, dtype, B, H, W, seed=1):
     from unetdc_tpu_torch.ops import fused_conv as fc
 
-    r = np.random.RandomState(1)
-    B, H, W = 2, 36, 40
+    r = np.random.RandomState(seed)
     dec2 = _t(np.maximum(r.randn(B, H // 2, W // 2, 128), 0), dev, dtype)
     enc1 = _t(np.maximum(r.randn(B, H, W, 64), 0), dev, dtype)
     head = {
@@ -75,6 +72,43 @@ def test_k2_matches_plain(dev, dtype):
         torch.testing.assert_close(out, ref, atol=3e-6, rtol=1e-5)
     else:
         assert float((out - ref).abs().max()) < 0.05
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_matches_plain(dev, dtype):
+    _k1_case(dev, dtype, 2, 40, 56)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_matches_plain(dev, dtype):
+    _k2_case(dev, dtype, 2, 36, 40)
+
+
+# K1's and K2's bf16 kernels walk 16x16 and 32x12 tiles on a persistent
+# grid of one block per SM: ragged edges, one side below a tile, B = 1, and
+# tile counts that do not divide over 132 SMs (K1: 180 tiles; K2: 270).
+K1_SHAPES = [(1, 30, 22), (1, 6, 40), (2, 48, 10), (2, 144, 160)]
+K2_SHAPES = [(1, 30, 26), (1, 10, 64), (2, 34, 8), (3, 176, 180)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K1_SHAPES, ids=str)
+def test_k1_tilings(dev, dtype, shape):
+    _k1_case(dev, dtype, *shape, seed=3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K2_SHAPES, ids=str)
+def test_k2_tilings(dev, dtype, shape):
+    _k2_case(dev, dtype, *shape, seed=4)
+
+
+def test_k1_main_path_shape(dev):
+    _k1_case(dev, torch.bfloat16, 8, 512, 512, seed=5)
+
+
+def test_k2_main_path_shape(dev):
+    _k2_case(dev, torch.bfloat16, 8, 512, 512, seed=6)
 
 
 @pytest.mark.parametrize("cap", [5120, 9000, 20000])

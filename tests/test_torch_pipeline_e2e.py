@@ -1,7 +1,7 @@
 """End to end: the port's batch quantifier (f32, on the CPU) against the JAX
 package's on the same decisive checkpoints and images (the fixture of
 tests/test_pipeline_e2e.py). Per-image and master CSVs must be byte-equal
-and the decoded mask PNGs pixel-equal. Also: the port CLI runs in-process
+and the decoded mask and overlay PNGs pixel-equal. Also: the port CLI runs in-process
 on the CPU, and refuses to run without a GPU unless asked for the CPU.
 """
 
@@ -93,8 +93,12 @@ def test_port_pipeline_matches_jax(ckpt, image_dir, tmp_path):
         mb = np.array(Image.open(tmp_path / "jax" / "predicted_masks"
                                  / f"{p.stem}_pred.png"))
         np.testing.assert_array_equal(ma, mb, err_msg=p.name)
-        ov = tmp_path / "port" / "overlays" / f"{p.stem}_overlay.png"
-        assert np.array(Image.open(ov)).shape == (*ma.shape, 3)
+        oa = np.array(Image.open(tmp_path / "port" / "overlays"
+                                 / f"{p.stem}_overlay.png"))
+        ob = np.array(Image.open(tmp_path / "jax" / "overlays"
+                                 / f"{p.stem}_overlay.png"))
+        assert oa.shape == (*ma.shape, 3)
+        np.testing.assert_array_equal(oa, ob, err_msg=p.name)
     assert n_droplets > 0  # the fixture really segments something
 
 

@@ -48,6 +48,14 @@ def _oihw(w_hwio: torch.Tensor) -> torch.Tensor:
     return w_hwio.permute(3, 2, 0, 1)
 
 
+def _check_aligned(name: str, *ts: torch.Tensor) -> None:
+    """The kernels' tensor maps (TMA) and vector loads need 16-byte aligned
+    bases."""
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name}: activations and weights must start on a "
+                         "16-byte boundary")
+
+
 # ---------------------------------------------------------------------------
 # K1: conv3x3 64->64 + bias + ReLU, and its 2x2 max pool
 # ---------------------------------------------------------------------------
@@ -78,6 +86,7 @@ def _check_k1(x, w, b):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("conv3x3_relu_pool: tensors must be contiguous "
                              "and on one device")
+    _check_aligned("conv3x3_relu_pool", x, w)
 
 
 def conv3x3_relu_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
@@ -147,6 +156,8 @@ def _check_k2(dec2, enc1, head):
         if t.device != enc1.device or not t.is_contiguous():
             raise ValueError("dec1_head: tensors must be contiguous and on "
                              "one device")
+    _check_aligned("dec1_head", dec2, enc1, head["w_up"], head["w0"],
+                   head["w1"])
 
 
 def dec1_head(dec2: torch.Tensor, enc1: torch.Tensor,

@@ -12,8 +12,8 @@ CLI's artifact set (quantify_droplets_batch.py):
 
 Port of the JAX package's `pipelines/quantify_batch.py`. CSV schemas and
 stdout lines stay as they are: the reference GUIs parse the CLI's stdout.
-Overlays are drawn with numpy/scipy (a 2-pixel ring on the outer boundary
-of each filled component) instead of cv2.drawContours.
+Overlays are drawn with cv2 (external contours, simple chain, thickness 2,
+green), as the reference draws them, so the overlay PNGs match its pixels.
 """
 
 from __future__ import annotations
@@ -75,14 +75,15 @@ def props_to_dataframe(props: Dict[str, np.ndarray], count: int,
 
 
 def draw_overlay(orig_rgb: np.ndarray, mask: np.ndarray) -> np.ndarray:
-    """Green 2-pixel outline around each component's outer boundary (the
-    reference draws external contours with cv2, thickness 2)."""
-    from scipy import ndimage as ndi
+    """Green external contours, thickness 2 (quantify_droplets_batch.py:77-78),
+    drawn with cv2 as the reference does. Takes RGB where the reference
+    takes BGR; green is (0, 255, 0) in both orders."""
+    import cv2
 
-    filled = ndi.binary_fill_holes(mask.astype(bool))
-    ring = ndi.binary_dilation(filled) & ~ndi.binary_erosion(filled)
-    out = np.array(orig_rgb, copy=True)
-    out[ring] = (0, 255, 0)
+    cnts, _ = cv2.findContours(mask.astype(np.uint8), cv2.RETR_EXTERNAL,
+                               cv2.CHAIN_APPROX_SIMPLE)
+    out = np.ascontiguousarray(orig_rgb).copy()
+    cv2.drawContours(out, cnts, -1, (0, 255, 0), 2)
     return out
 
 
