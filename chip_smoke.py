@@ -12,10 +12,16 @@ Phases, each printing one JSON line:
                up and once counted: every kernel launch counter is zeroed
                just before and read just after; the artifact tree and the
                droplet tables are checked (scipy labels the written masks);
-  4. kernels — K1, K2, K3 at the shapes the CLI run gave them: agreement
-               with their plain PyTorch versions, times, bounds, launches,
-               the fraction of the bound reached and the time over the
-               library call's; K1 and K2 (bf16) must beat the library call;
+  4. kernels — K1, K2, K3 at the shapes the CLI run gave them (K3 at both
+               image sizes): agreement with their plain PyTorch versions,
+               event time around one call (`ms`), device time from
+               torch.profiler (`device_ms`: the kernels and memsets one
+               call launches, host enqueue excluded), bounds, launches,
+               the fractions of the bound reached and the time over the
+               library call's; every kernel must beat its library call;
+               then K3 on scipy-labelled blob batches at the overflow
+               caps 8193 and 32769 and on its global-atomics path
+               (`k3_overflow` line), each exactly equal to plain;
   5. masks   — the same images through the f32 kernel path and the plain
                f32 path (TF32 off): every pixel whose 0.3 decision differs
                must sit within 1e-3 of the threshold, and at most 1e-5 of
@@ -182,6 +188,38 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of one fn() call: the summed durations of the
+    kernels and memsets it launches, from torch.profiler's CUDA activity,
+    one profiler session per call (so no activity is attributed to the
+    wrong call). Unlike `cuda_ms`, host enqueue time is not counted. A
+    session now and then records no device activity at all; such sessions
+    are repeated (at most `reps` times in all), never counted as 0."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def one():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA) / 1e3
+
+    for _ in range(warmup):
+        one()
+    per_call, empty = [], 0
+    while len(per_call) < reps:
+        t = one()
+        if t > 0:
+            per_call.append(t)
+        else:
+            empty += 1
+            check(empty <= reps, "torch.profiler recorded no device "
+                  f"activity in {empty} sessions")
+    return statistics.median(per_call)
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -196,8 +234,7 @@ def kernel_rows(engine, img_dir, out_dir, launches):
 
     from unetdc_tpu_torch.models.unet_fast import forward_folded
     from unetdc_tpu_torch.ops import fused_conv as fc
-    from unetdc_tpu_torch.ops.component_tables import (
-        component_tables, component_tables_plain)
+    from unetdc_tpu_torch.ops.component_tables import component_tables_plain
     from unetdc_tpu_torch.ops.connected_components import (_coord_plan,
                                                            label_batch)
     from unetdc_tpu_torch.io.images import decode_rgb
@@ -217,12 +254,16 @@ def kernel_rows(engine, img_dir, out_dir, launches):
     with torch.no_grad():
         x = engine._preprocess(torch.from_numpy(batch).cuda(), 50, True)
         forward_folded(engine.params, x, engine._dilations, rec_k1, rec_k2)
-    masks = np.stack([np.array(Image.open(
-        Path(out_dir) / "predicted_masks" / f"{p.stem}_pred.png")) // 255
-        for p in imgs[BATCH:2 * BATCH]])
-    labels, _ = label_batch(torch.from_numpy(masks).cuda(), 1)
-    labels = labels.contiguous()
-    h, w = masks.shape[1:]
+
+    def cli_labels(group):
+        masks = np.stack([np.array(Image.open(
+            Path(out_dir) / "predicted_masks" / f"{p.stem}_pred.png")) // 255
+            for p in group])
+        return label_batch(torch.from_numpy(masks).cuda(), 1)[0].contiguous()
+
+    labels = cli_labels(imgs[BATCH:2 * BATCH])  # (8, 600, 800)
+    labels512 = cli_labels(imgs[:BATCH])  # (8, 512, 512)
+    h, w = labels.shape[1:]
     plan = _coord_plan(h, w, force_split=True)
     torch.cuda.synchronize()
     rows = []
@@ -256,6 +297,7 @@ def kernel_rows(engine, img_dir, out_dir, launches):
         launches=launches.get("conv3x3_relu_pool", 0),
         max_abs_err=err, max_abs_err_f32=err32,
         ms=cuda_ms(lambda: fc.conv3x3_relu_pool(x1, w1, b1)),
+        device_ms=device_ms(lambda: fc.conv3x3_relu_pool(x1, w1, b1)),
         plain_ms=cuda_ms(lambda: fc.conv3x3_relu_pool_plain(x1, w1, b1),
                          reps=5),
         library_ms=cuda_ms(lambda: F.max_pool2d(
@@ -313,6 +355,7 @@ def kernel_rows(engine, img_dir, out_dir, launches):
         max_abs_err_unscaled_head=err_unscaled,
         max_abs_err_f32_unscaled_head=err32,
         ms=cuda_ms(lambda: fc.dec1_head(dec2, enc1, head)),
+        device_ms=device_ms(lambda: fc.dec1_head(dec2, enc1, head)),
         plain_ms=cuda_ms(lambda: fc.dec1_head_plain(dec2, enc1, head),
                          reps=5),
         library_ms=cuda_ms(lib_k2),
@@ -321,11 +364,8 @@ def kernel_rows(engine, img_dir, out_dir, launches):
 
     # K3 ---------------------------------------------------------------
     cap = max(5120, engine.max_labels + 1)
-    t = component_tables(labels, *plan, cap=cap)
-    tr = component_tables_plain(labels, *plan, cap=cap)
-    check(torch.equal(t, tr), "K3 disagrees with its plain version")
     B = labels.shape[0]
-    nfeat = t.shape[-1]
+    nfeat = 1 + 2 * len(plan[0])
     m = (1 << plan[1]) - 1
     pidx = torch.arange(h * w, device="cuda")
     feats = torch.stack([torch.ones_like(pidx)]
@@ -342,21 +382,86 @@ def kernel_rows(engine, img_dir, out_dir, launches):
         tab.zero_()
         tab.scatter_add_(0, idx, feats)
 
-    n_in = int(ok.sum())
     rows.append(dict(
         name="K3 component_tables", route="cuda",
         source="unetdc_tpu_torch/csrc/component_tables.cu",
         replaces="unetdc_tpu/ops/pallas_props.py:181",
         launches=launches.get("component_tables", 0),
-        max_abs_err=float((t - tr).abs().max()),
-        ms=cuda_ms(lambda: component_tables(labels, *plan, cap=cap)),
+        max_abs_err=0.0,  # k3_timing holds it equal to the plain version
+        **k3_timing(labels, cap),
         plain_ms=cuda_ms(lambda: component_tables_plain(labels, *plan,
                                                         cap=cap), reps=5),
         library_ms=cuda_ms(lib_k3),
-        **bound(nbytes(labels, t), n_in * nfeat, "f32"),
-        shapes=f"labels {tuple(labels.shape)} int32, cap {cap}, "
-               f"plan {plan}"))
+        at_512x512=k3_timing(labels512, cap)))
     return rows
+
+
+def k3_timing(labels, cap):
+    """K3 held to its plain version on `labels`, with its event and device
+    times and its bound (the labels read once, the table written once)."""
+    import torch
+
+    from unetdc_tpu_torch.ops.component_tables import (
+        component_tables, component_tables_plain)
+    from unetdc_tpu_torch.ops.connected_components import _coord_plan
+
+    plan = _coord_plan(*labels.shape[1:], force_split=True)
+    t = component_tables(labels, *plan, cap=cap)
+    check(torch.equal(t, component_tables_plain(labels, *plan, cap=cap)),
+          f"K3 disagrees with its plain version at {tuple(labels.shape)}, "
+          f"cap {cap}")
+    n_in = int(((labels >= 0) & (labels < cap)).sum())
+    r = dict(shapes=f"labels {tuple(labels.shape)} int32, cap {cap}, "
+                    f"plan {plan}",
+             components_max=int(labels.amax()),
+             ms=cuda_ms(lambda: component_tables(labels, *plan, cap=cap)),
+             device_ms=device_ms(lambda: component_tables(labels, *plan,
+                                                          cap=cap)),
+             **bound(nbytes(labels, t), n_in * t.shape[-1], "f32"))
+    r["frac_of_bound_device"] = r["bound_ms"] / r["device_ms"]
+    return r
+
+
+def blob_labels(seed: int = 11, b: int = BATCH, h: int = 600, w: int = 800):
+    """Seeded (b, h, w) int32 labels of 2-6 px blobs, one in ~85% of the
+    4x4 cells (row 3 and column 3 of each cell stay empty), numbered by
+    scipy.ndimage.label in raster order: ~25K components an image, runs of
+    one label 2-3 pixels long, as the engine's overflow re-runs see."""
+    import numpy as np
+    from scipy import ndimage as ndi
+
+    rng = np.random.RandomState(seed)
+    ch, cw = h // 4, w // 4
+    out = np.zeros((b, h, w), np.int32)
+    for i in range(b):
+        on = rng.rand(ch, cw) < 0.85
+        bh, bw = rng.randint(1, 3, (ch, cw)), rng.randint(2, 4, (ch, cw))
+        oy, ox = rng.randint(0, 4 - bh), rng.randint(0, 4 - bw)
+        cells = np.zeros((ch, 4, cw, 4), bool)
+        for dy in range(3):
+            for dx in range(3):
+                cells[:, dy, :, dx] = (on & (dy >= oy) & (dy < oy + bh)
+                                       & (dx >= ox) & (dx < ox + bw))
+        out[i], _ = ndi.label(cells.reshape(h, w))
+    return out
+
+
+def k3_overflow_cases():
+    """K3 on scipy-labelled blob batches at the engine's overflow caps
+    (8193, 32769) and at a cap whose table takes the global-atomics path;
+    each exactly equal to the plain version."""
+    import torch
+
+    from unetdc_tpu_torch.ops.component_tables import cluster_max_cap
+
+    caps = (8193, 32769, 262145)
+    check(caps[1] <= cluster_max_cap(2) < caps[2],
+          f"K3 cluster capacity {cluster_max_cap(2)}: the caps {caps} no "
+          "longer cover both paths")
+    labels = torch.from_numpy(blob_labels()).cuda()
+    return [dict(k3_timing(labels, cap),
+                 path="cluster" if cap <= cluster_max_cap(2) else "global")
+            for cap in caps]
 
 
 def stage_times(engine, img_dir):
@@ -523,12 +628,14 @@ def main() -> int:
         rows = kernel_rows(pipe.engine, img_dir, work / "out", launches)
         for r in rows:
             r["frac_of_bound"] = r["bound_ms"] / r["ms"]
+            r["frac_of_bound_device"] = r["bound_ms"] / r["device_ms"]
             r["x_library"] = r["ms"] / r["library_ms"]
+        emit({"phase": "k3_overflow", "cases": k3_overflow_cases()})
         emit({"phase": "stages",
               "ms": stage_times(pipe.engine, img_dir)})
         emit({"kernels": rows})
-        # the redesigned conv kernels must beat their cuDNN yardsticks
-        for r in rows[:2]:
+        # every kernel must beat its library yardstick
+        for r in rows:
             check(r["ms"] < r["library_ms"],
                   f"{r['name']}: {r['ms']:.3f} ms, slower than the library "
                   f"call ({r['library_ms']:.3f} ms)")

@@ -58,3 +58,85 @@ def test_plain_cap_beyond_5120():
                 got[b, k], [len(ys), (ys & 255).sum(), (ys >> 8).sum(),
                             (xs & 255).sum(), (xs >> 8).sum()])
     assert got[:, :, 0].sum() == ((lab >= 0) & (lab < cap)).sum()
+
+
+def _blob_masks(seed, b, h, w, cell, p=0.9):
+    """Seeded masks of small blobs, one in a fraction p of the cell x cell
+    tiles (the last row and column of each tile stay empty)."""
+    r = np.random.RandomState(seed)
+    ch, cw = h // cell, w // cell
+    tiles = np.zeros((b, ch, cell, cw, cell), bool)
+    for dy in range(cell - 1):
+        for dx in range(cell - 1):
+            tiles[:, :, dy, :, dx] = r.rand(b, ch, cw) < 0.7
+    tiles &= (r.rand(b, ch, 1, cw, 1) < p)
+    out = np.zeros((b, h, w), bool)
+    out[:, :ch * cell, :cw * cell] = tiles.reshape(b, ch * cell, cw * cell)
+    return out
+
+
+def _labelled(masks):
+    from scipy import ndimage as ndi
+
+    return np.stack([ndi.label(m)[0] for m in masks]).astype(np.int32)
+
+
+def _numpy_tables(lab, shifts, bits, cap):
+    """Independent oracle: per-label sums with np.add.at, any cap."""
+    b, h, w = lab.shape
+    m = (1 << bits) - 1
+    rows, cols = np.indices((h, w)).reshape(2, -1)
+    feats = np.stack([np.ones_like(rows)] + [(rows >> s) & m for s in shifts]
+                     + [(cols >> s) & m for s in shifts], -1)
+    out = np.zeros((b, cap, feats.shape[1]), np.int64)
+    for i in range(b):
+        flat = lab[i].reshape(-1)
+        ok = (flat >= 0) & (flat < cap)
+        np.add.at(out[i], flat[ok], feats[ok])
+    return out.astype(np.int32)
+
+
+def _whole_rows():
+    lab = np.zeros((1, 40, 70), np.int32)
+    lab[0, 5:9] = 1
+    lab[0, 20] = 2
+    lab[0, 30:] = 3
+    return lab
+
+
+SCIPY_CASES = {
+    # name: (labels, shifts, bits, cap)
+    "droplets_64x64": (lambda: _labelled(_blob_masks(0, 2, 64, 64, 6)),
+                       (0, 8), 8, CAP),
+    "random_fg_97": (lambda: _labelled(np.random.RandomState(1).rand(
+        2, 45, 97) < 0.35), (0, 8), 8, CAP),
+    "droplets_plan_5": (lambda: _labelled(_blob_masks(2, 2, 48, 80, 4)),
+                        (0, 5, 10), 5, CAP),
+    "b1_whole_rows": (_whole_rows, (0, 8), 8, CAP),
+    "one_component": (lambda: np.ones((2, 30, 50), np.int32), (0, 8), 8,
+                      CAP),
+    "over_cap_5120_at_9000": (lambda: _labelled(_blob_masks(3, 1, 240, 240,
+                                                            3)),
+                              (0, 8), 8, 9000),
+}
+
+
+@pytest.mark.parametrize("name", list(SCIPY_CASES))
+def test_plain_on_scipy_labels(name):
+    """The plain K3 on raster-ranked scipy labels (runs of one label, as the
+    engine produces) against the JAX reference and, for the rows the JAX
+    table holds (labels < CAP), the Pallas kernel in interpret mode; the
+    whole table against a numpy oracle (rows >= CAP at cap 9000 too)."""
+    make, shifts, bits, cap = SCIPY_CASES[name]
+    lab = make()
+    got = CT.component_tables_plain(torch.from_numpy(lab), shifts, bits,
+                                    cap).numpy()
+    np.testing.assert_array_equal(got, _numpy_tables(lab, shifts, bits, cap))
+    ref = np.asarray(component_tables_reference(jnp.asarray(lab), shifts,
+                                                bits))
+    kern = np.asarray(component_tables(jnp.asarray(lab), shifts, bits,
+                                       interpret=True))
+    np.testing.assert_array_equal(got[:, :CAP], ref)
+    np.testing.assert_array_equal(got[:, :CAP], kern)
+    if name.startswith("over_cap"):
+        assert lab.max() > CAP and got[:, CAP:, 0].sum() > 0

@@ -127,3 +127,111 @@ def test_k3_matches_plain(dev, cap):
         torch.cuda.synchronize()
         ref = component_tables_plain(t, *plan, cap=cap)
         assert torch.equal(got, ref), (b, h, w, plan, cap)
+
+
+def _scipy_labels(seed, b, h, w, density=0.3):
+    """Raster-ranked labels of seeded random masks (scipy.ndimage.label)."""
+    from scipy import ndimage as ndi
+
+    r = np.random.RandomState(seed)
+    out = np.zeros((b, h, w), np.int32)
+    for i in range(b):
+        out[i] = ndi.label(r.rand(h, w) < density)[0]
+    return out
+
+
+def _k3_case(name):
+    """(labels, cap) of one named K3 case; the plan is the engine's."""
+    if name == "scipy":
+        return _scipy_labels(7, 3, 120, 160), 5120
+    if name == "w97":
+        return _scipy_labels(8, 2, 61, 97), 5120
+    if name == "w801":
+        return _scipy_labels(9, 2, 37, 801), 5120
+    if name == "b1":
+        return _scipy_labels(10, 1, 200, 300), 8193
+    if name == "whole_rows":
+        lab = np.zeros((2, 50, 130), np.int32)
+        lab[:, 10:20] = 3
+        lab[1, 30:33] = 4095
+        return lab, 5120
+    if name == "background":
+        return np.zeros((2, 64, 96), np.int32), 5120
+    if name == "one_component":
+        return np.ones((2, 90, 70), np.int32), 5120
+    if name == "dropped":
+        lab = _scipy_labels(11, 2, 100, 100, density=0.5)
+        lab[:, ::7] = -5  # negative labels are dropped, as labels >= cap
+        return lab, 300
+    if name == "beyond_cluster":
+        from unetdc_tpu_torch.ops.component_tables import cluster_max_cap
+
+        lab = _scipy_labels(12, 2, 300, 300, density=0.3)
+        cap = cluster_max_cap(2) + 1
+        lab[:, 0, :8] = cap - 1  # the table's last row
+        return lab, cap
+    raise KeyError(name)
+
+
+K3_CASES = ["scipy", "w97", "w801", "b1", "whole_rows", "background",
+            "one_component", "dropped", "beyond_cluster"]
+
+
+@pytest.mark.parametrize("name", K3_CASES)
+def test_k3_cases(dev, name):
+    """K3 exactly equal to its plain version on labels shaped like the
+    main path's (runs of one label), ragged widths, B = 1, degenerate
+    images and a table beyond the cluster's capacity."""
+    from unetdc_tpu_torch.ops.component_tables import (
+        component_tables, component_tables_plain)
+    from unetdc_tpu_torch.ops.connected_components import _coord_plan
+
+    lab, cap = _k3_case(name)
+    t = torch.from_numpy(lab).to(dev)
+    plan = _coord_plan(*lab.shape[1:], force_split=True)
+    got = component_tables(t, *plan, cap=cap)
+    torch.cuda.synchronize()
+    assert torch.equal(got, component_tables_plain(t, *plan, cap=cap))
+
+
+def test_k3_main_path_shapes(dev):
+    from unetdc_tpu_torch.ops.component_tables import (
+        component_tables, component_tables_plain)
+
+    for shape in [(8, 600, 800), (8, 512, 512)]:
+        t = torch.from_numpy(_scipy_labels(13, *shape)).to(dev)
+        got = component_tables(t)
+        torch.cuda.synchronize()
+        assert torch.equal(got, component_tables_plain(t)), shape
+
+
+def test_k3_offset_view(dev):
+    """A label tensor that starts off the 16-byte grid (scalar heads)."""
+    from unetdc_tpu_torch.ops.component_tables import (
+        component_tables, component_tables_plain)
+
+    lab = _scipy_labels(14, 1, 2 * 40 * 64 + 1, 1)[0, :, 0]
+    t = torch.from_numpy(lab).to(dev)[1:].view(2, 40, 64)
+    assert t.data_ptr() % 16 == 4 and t.is_contiguous()
+    got = component_tables(t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, component_tables_plain(t))
+
+
+def test_k3_never_takes_the_plain_version(dev, monkeypatch):
+    from unetdc_tpu_torch.ops import component_tables as ct
+    from unetdc_tpu_torch.ops import cuda_build as cb
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    lab = torch.from_numpy(_scipy_labels(15, 2, 40, 50)).to(dev)
+    ref = ct.component_tables_plain(lab)
+    monkeypatch.setattr(ct, "component_tables_plain", refuse)
+    before = cb.LAUNCHES["component_tables"]
+    got = ct.component_tables(lab)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert cb.LAUNCHES["component_tables"] == before + 1
+    with pytest.raises(ValueError):
+        ct.component_tables(lab.to(torch.int64))

@@ -12,13 +12,15 @@ in exact int32; labels >= cap (and negative labels) are dropped. The
 `(shifts, bits)` plan comes from `connected_components._coord_plan(h, w,
 force_split=True)`, and the output layout `(B, cap, 1 + 2k)` is the JAX
 function's, so the two compare directly. Source of the kernel:
-`csrc/component_tables.cu` (shared-memory int32 atomics per block, global
-atomics above what shared memory holds; exact for every cap).
+`csrc/component_tables.cu`: one 16-CTA thread-block cluster per image
+owns the image's table in distributed shared memory (int32 atomics, one
+per run of a label rather than per pixel; each output word stored once, no
+memset) up to `cluster_max_cap(k)` labels; larger tables take the same
+walk with global atomics. Exact for every cap.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence
 
 import torch
@@ -61,18 +63,31 @@ def component_tables(labels: torch.Tensor, shifts: Sequence[int] = (0, 8),
             not labels.is_contiguous():
         raise ValueError("component_tables: labels must be a contiguous "
                          "(B, H, W) int32 tensor")
-    if not 1 <= len(shifts) <= MAX_SHIFTS or not 1 <= bits <= 8 or cap < 1:
+    if not 1 <= len(shifts) <= MAX_SHIFTS or not 1 <= bits <= 8 or \
+            cap < 1 or not all(0 <= s < 32 for s in shifts):
         raise ValueError(f"component_tables: unsupported plan {shifts}, "
                          f"bits={bits}, cap={cap}")
     b, h, w = labels.shape
     nfeat = 1 + 2 * len(shifts)
+    if b * h * w == 0:  # nothing to launch for
+        return torch.zeros((b, cap, nfeat), dtype=torch.int32,
+                           device=labels.device)
+    if b > 65535:
+        raise ValueError(f"component_tables: batch {b} > 65535")
     out = torch.empty((b, cap, nfeat), dtype=torch.int32,
                       device=labels.device)
-    sh = (ctypes.c_int * len(shifts))(*shifts)  # host array, read at launch
+    packed = sum(s << (8 * i) for i, s in enumerate(shifts))
     rc = cb.lib().k3_component_tables(
-        labels.data_ptr(), out.data_ptr(), b, h, w, cap, ctypes.addressof(sh),
+        labels.data_ptr(), out.data_ptr(), b, h, w, cap, packed,
         len(shifts), bits, cb.stream_of(labels))
     cb.check(rc, "k3_component_tables")
     cb.LAUNCHES["component_tables"] += 1
     return out
+
+
+def cluster_max_cap(k: int = 2) -> int:
+    """Largest cap whose table (1 + 2k features) the kernel keeps in one
+    cluster's distributed shared memory; larger caps use global atomics.
+    Needs the built library (a machine with the CUDA toolkit)."""
+    return cb.lib().k3_cluster_max_cap(k)
 

@@ -45,7 +45,9 @@ _SIGNATURES = {
     "k1_conv3x3_relu_pool_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "k2_dec1_head_bf16": [_P] * 11 + [_I, _I, _I, _P],
     "k2_dec1_head_f32": [_P] * 11 + [_I, _I, _I, _P],
-    "k3_component_tables": [_P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
+    "k3_component_tables": [_P, _P, _I, _I, _I, _I, ctypes.c_uint64, _I,
+                            _I, _P],
+    "k3_cluster_max_cap": [_I],
 }
 
 
