@@ -18,7 +18,8 @@ Phases, each printing one JSON line:
                torch.profiler (`device_ms`: the kernels and memsets one
                call launches, host enqueue excluded), bounds, launches,
                the fractions of the bound reached and the time over the
-               library call's; every kernel must beat its library call;
+               library call's (K3 also at 512x512); every kernel must beat
+               its library call;
                then K3 on scipy-labelled blob batches at the overflow
                caps 8193 and 32769 and on its global-atomics path
                (`k3_overflow` line), each exactly equal to plain;
@@ -27,6 +28,20 @@ Phases, each printing one JSON line:
                must sit within 1e-3 of the threshold, and at most 1e-5 of
                the mask pixels may differ; the bf16 kernel path's distance
                from the plain bf16 and plain f32 paths is reported.
+  6. train   — the training path: 16 seeded 512x512 image/mask pairs
+               (split 9/3/4, so the last training batch holds 1 image); two
+               epochs of the full-width UNetDC through the port's
+               train_dc_focal CLI (bf16, batch 8, cuda) with its test
+               phase (without matplotlib and seaborn, which the CLI's
+               plots need: Trainer.fit and the test phase directly), a
+               third epoch resumed from `.last`, and the port's
+               quantify CLI on the trained `.msgpack` (K1-K3 launched);
+               the train step timed alone on one device-resident batch of
+               8 (`train_step` line: median ms, img/s, mfu, peak memory,
+               first and last loss, a torch.profiler split of one step);
+               one step on the card and on the CPU from the same weights
+               (`train_f32_card_vs_cpu` line: f32 with TF32 off and f64;
+               see `card_vs_cpu_step` for the tolerances).
 Then the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: the script exits
 nonzero and prints no result. It needs CUDA and the rest of the checkout.
@@ -34,7 +49,12 @@ nonzero and prints no result. It needs CUDA and the rest of the checkout.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
+import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -120,7 +140,7 @@ def run_cli(img_dir, ckpt, out_dir, precision="bf16"):
                  "--save_overlays", "--px_per_micron", str(PX_PER_UM)])
 
 
-def check_artifacts(img_dir, out_dir):
+def check_artifacts(img_dir, out_dir, need_droplets: bool = True):
     """The reference CLI's artifact tree, and droplet counts/areas that
     agree with scipy's labeling of the written masks."""
     import numpy as np
@@ -165,7 +185,7 @@ def check_artifacts(img_dir, out_dir):
             check(np.allclose(df["centroid-0"], cy, rtol=1e-12, atol=0),
                   f"{p.name}: centroids")
         total += n
-    check(total > 0, "no droplets found")
+    check(total > 0 or not need_droplets, "no droplets found")
     return total
 
 
@@ -364,13 +384,41 @@ def kernel_rows(engine, img_dir, out_dir, launches):
 
     # K3 ---------------------------------------------------------------
     cap = max(5120, engine.max_labels + 1)
-    B = labels.shape[0]
-    nfeat = 1 + 2 * len(plan[0])
-    m = (1 << plan[1]) - 1
+    plan512 = _coord_plan(*labels512.shape[1:], force_split=True)
+    rows.append(dict(
+        name="K3 component_tables", route="cuda",
+        source="unetdc_tpu_torch/csrc/component_tables.cu",
+        replaces="unetdc_tpu/ops/pallas_props.py:181",
+        launches=launches.get("component_tables", 0),
+        max_abs_err=0.0,  # k3_timing holds it equal to the plain version
+        **k3_timing(labels, cap),
+        plain_ms=cuda_ms(lambda: component_tables_plain(labels, *plan,
+                                                        cap=cap), reps=5),
+        library_ms=cuda_ms(k3_library(labels, cap)),
+        at_512x512=dict(
+            k3_timing(labels512, cap),
+            plain_ms=cuda_ms(lambda: component_tables_plain(
+                labels512, *plan512, cap=cap), reps=5),
+            library_ms=cuda_ms(k3_library(labels512, cap)))))
+    return rows
+
+
+def k3_library(labels, cap):
+    """K3's library yardstick on `labels`: zero_ + scatter_add_ of the
+    same per-label count and coordinate-chunk sums into a (B*(cap+1),
+    nfeat) int32 table (out-of-range labels go to a spill row)."""
+    import torch
+
+    from unetdc_tpu_torch.ops.connected_components import _coord_plan
+
+    B, h, w = labels.shape
+    shifts, bits = _coord_plan(h, w, force_split=True)
+    nfeat = 1 + 2 * len(shifts)
+    m = (1 << bits) - 1
     pidx = torch.arange(h * w, device="cuda")
     feats = torch.stack([torch.ones_like(pidx)]
-                        + [((pidx // w) >> s) & m for s in plan[0]]
-                        + [((pidx % w) >> s) & m for s in plan[0]],
+                        + [((pidx // w) >> s) & m for s in shifts]
+                        + [((pidx % w) >> s) & m for s in shifts],
                         -1).to(torch.int32).repeat(B, 1)
     lab64 = labels.reshape(B, -1).long()
     ok = (lab64 >= 0) & (lab64 < cap)
@@ -382,18 +430,7 @@ def kernel_rows(engine, img_dir, out_dir, launches):
         tab.zero_()
         tab.scatter_add_(0, idx, feats)
 
-    rows.append(dict(
-        name="K3 component_tables", route="cuda",
-        source="unetdc_tpu_torch/csrc/component_tables.cu",
-        replaces="unetdc_tpu/ops/pallas_props.py:181",
-        launches=launches.get("component_tables", 0),
-        max_abs_err=0.0,  # k3_timing holds it equal to the plain version
-        **k3_timing(labels, cap),
-        plain_ms=cuda_ms(lambda: component_tables_plain(labels, *plan,
-                                                        cap=cap), reps=5),
-        library_ms=cuda_ms(lib_k3),
-        at_512x512=k3_timing(labels512, cap)))
-    return rows
+    return lib_k3
 
 
 def k3_timing(labels, cap):
@@ -575,6 +612,369 @@ def run_plain(img_dir, ckpt, out_dir, precision):
     pipe.write_reports(skip_excel=True, skip_histogram=True)
 
 
+# ---------------------------------------------------------------- train --
+TRAIN_PAIRS = 16
+
+
+def make_train_set(d: Path, seed: int = 16):
+    """16 seeded pairs of a 512x512 RGB image (bright disks on dark noise)
+    and its mask (the disks, 255)."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    for sub in ("images", "masks"):
+        (d / sub).mkdir(parents=True, exist_ok=True)
+    yy, xx = np.mgrid[:512, :512]
+    for i in range(TRAIN_PAIRS):
+        img = (rng.rand(512, 512, 3) * 60).astype(np.uint8)
+        mask = np.zeros((512, 512), np.uint8)
+        for _ in range(30):
+            cy, cx = rng.randint(16, 496, 2)
+            blob = (yy - cy) ** 2 + (xx - cx) ** 2 <= rng.randint(4, 16) ** 2
+            img[blob] = np.minimum(img[blob].astype(np.int32) + 150, 255)
+            mask[blob] = 255
+        Image.fromarray(img).save(d / "images" / f"t{i:02d}.png")
+        Image.fromarray(mask).save(d / "masks" / f"t{i:02d}.png")
+
+
+def unet_forward_flops(h: int, w: int, widths=(64, 128, 256, 512, 1024),
+                       cin: int = 3) -> int:
+    """Multiply-add FLOPs (2 per MAC) of one UNet/UNetDC forward on an
+    (h, w) image, from the conv shapes: the double 3x3 convs, the 2x2
+    stride-2 upconvs and the 1x1 head."""
+    f, c = 0, cin
+    for i, wd in enumerate(widths):                # encoder, bottleneck
+        f += 2 * (h >> i) * (w >> i) * 9 * (c * wd + wd * wd)
+        c = wd
+    for i in range(len(widths) - 2, -1, -1):       # upconv + decoder
+        wd = widths[i]
+        f += 2 * (h >> (i + 1)) * (w >> (i + 1)) * c * wd * 4
+        f += 2 * (h >> i) * (w >> i) * 9 * (2 * wd * wd + wd * wd)
+        c = wd
+    return f + 2 * h * w * c
+
+
+def plotting_modules() -> dict:
+    """Which of the CLIs' plotting modules this machine has."""
+    import importlib.util
+
+    return {m: importlib.util.find_spec(m) is not None
+            for m in ("matplotlib", "seaborn")}
+
+
+def have_plotting() -> bool:
+    return all(plotting_modules().values())
+
+
+def run_train(train_dir: Path, out_dir: Path, epochs: int,
+              resume: bool = False):
+    """The port's train_dc_focal CLI (bf16, batch 8, cuda) run in `out_dir`
+    (it writes its plots and artifact folders to the working directory);
+    returns (trainer, stdout). Without matplotlib/seaborn the CLI cannot
+    draw its plots, so Trainer.fit and the test phase are driven directly
+    with the CLI's settings."""
+    from unetdc_tpu_torch.cli.train_dc_focal import main
+
+    ckpt = out_dir / "best_UNetDC_focal_model.msgpack"
+    argv = ["--image_dir", str(train_dir / "images"), "--mask_dir",
+            str(train_dir / "masks"), "--epochs", str(epochs), "--batch",
+            str(BATCH), "--precision", "bf16", "--device", "cuda",
+            "--ckpt_path", str(ckpt)]
+    if resume:
+        argv += ["--resume", "--skip_test"]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cwd = os.getcwd()
+    buf = io.StringIO()
+    try:
+        os.chdir(out_dir)
+        with contextlib.redirect_stdout(buf):
+            trainer = (main(argv) if have_plotting()
+                       else fit_without_plots(argv))
+    finally:
+        os.chdir(cwd)
+    return trainer, buf.getvalue()
+
+
+def fit_without_plots(argv):
+    """train_dc_focal's steps without its matplotlib/seaborn artifacts."""
+    from unetdc_tpu_torch.checkpoint.native import load_checkpoint
+    from unetdc_tpu_torch.cli.train_dc_focal import build_parser
+    from unetdc_tpu_torch.data.dataset import (SegmentationData,
+                                               discover_pairs, split_dataset)
+    from unetdc_tpu_torch.train.test_phase import run_test_phase
+    from unetdc_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    a = build_parser().parse_args(argv)
+    (tr, trm), (va, vam), (te, tem) = split_dataset(
+        *discover_pairs(a.image_dir, a.mask_dir))
+    trainer = Trainer(TrainConfig(
+        num_epochs=a.epochs, batch_size=a.batch, ckpt_path=a.ckpt_path,
+        save_val_masks_dir=a.val_masks_dir, resume=a.resume), device="cuda")
+
+    def mk(il, ml, sh):
+        return SegmentationData(a.image_dir, a.mask_dir, il, ml,
+                                batch_size=a.batch, shuffle=sh, seed=a.seed)
+
+    trainer.fit(mk(tr, trm, True), mk(va, vam, False))
+    if not a.skip_test:
+        trainer.variables = load_checkpoint(a.ckpt_path)
+        trainer.run_epoch_eval(mk(te, tem, False), a.test_masks_dir)
+        run_test_phase(trainer, mk(te, tem, False), a.diff_map_dir,
+                       a.overlay_dir)
+    return trainer
+
+
+EPOCH_LINE = re.compile(r"Epoch (\d+)/(\d+) \| Train Loss: (\S+), "
+                        r"Val Loss: (\S+), Train Dice: (\S+), "
+                        r"Val Dice: (\S+)")
+
+
+def train_phase(work: Path, cb):
+    """Two epochs through the CLI with its test phase, a third resumed
+    from `.last`, then the port's quantify CLI on the trained checkpoint."""
+    import torch
+
+    t0 = time.perf_counter()
+    data = work / "train_set"
+    make_train_set(data)
+    out = work / "train_run"
+    trainer, log = run_train(data, out, epochs=2)
+    epochs = [m.groups() for m in EPOCH_LINE.finditer(log)]
+    check(len(epochs) == 2, f"expected 2 epoch lines, got {len(epochs)}")
+    losses = [float(v) for e in epochs for v in e[2:4]]
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(all(math.isfinite(v) for k in ("train_loss", "val_loss")
+              for v in trainer.history[k]), "non-finite history")
+    check("Model saved!" in log, "no 'Model saved!'")
+    ckpt = out / "best_UNetDC_focal_model.msgpack"
+    files = [str(ckpt) + s for s in ("", ".meta.json", ".opt", ".last",
+                                     ".state.json")]
+    check(all(os.path.exists(f) for f in files), "checkpoint files")
+    check("Test Dice:" in log or not have_plotting(), "no test phase")
+    check(len(list((out / "overlay_diff_test").glob("*.png"))) == 4,
+          "test-phase overlays")
+    two_epochs_s = time.perf_counter() - t0
+    _, log3 = run_train(data, out, epochs=3, resume=True)
+    check("Resumed from" in log3 and "Epoch 3/3" in log3,
+          "the resumed third epoch")
+    e3 = [m.groups() for m in EPOCH_LINE.finditer(log3)]
+    check(len(e3) == 1 and math.isfinite(float(e3[0][2])), "epoch 3 loss")
+
+    torch.cuda.synchronize()
+    cb.reset_launches()
+    pipe = run_cli(data / "images", ckpt, work / "quant_trained")
+    torch.cuda.synchronize()
+    launches = dict(cb.LAUNCHES)
+    for k in ("conv3x3_relu_pool", "dec1_head", "component_tables"):
+        check(launches.get(k, 0) >= 1,
+              f"{k} not launched quantifying the trained checkpoint")
+    n_drop = check_artifacts(data / "images", work / "quant_trained",
+                             need_droplets=False)
+    return {"phase": "train", "pairs": TRAIN_PAIRS, "split": "9/3/4",
+            "ran_through": ("cli.train_dc_focal.main" if have_plotting()
+                            else "Trainer.fit + test phase (matplotlib/"
+                                 "seaborn absent)"),
+            "plots": plotting_modules(),
+            "epochs": [{"epoch": int(e[0]), "train_loss": float(e[2]),
+                        "val_loss": float(e[3]), "train_dice": float(e[4]),
+                        "val_dice": float(e[5])} for e in epochs + e3],
+            "two_epochs_with_test_phase_s": two_epochs_s,
+            "resumed": True, "files": [os.path.basename(f) for f in files],
+            "quantified_trained_msgpack": {
+                "images": TRAIN_PAIRS, "droplets": n_drop,
+                "launches": launches,
+                "megastep_ms_median": statistics.median(
+                    pipe.engine.megastep_ms)}}
+
+
+def train_step_timing(work: Path, warmup: int = 3, reps: int = 20):
+    """The train step alone on one device-resident batch of 8 at 512x512,
+    bf16, from fresh weights (cuDNN's autotuning falls in the warm-up)."""
+    import numpy as np
+    import torch
+
+    from unetdc_tpu_torch.io.images import decode_rgb
+    from unetdc_tpu_torch.train.trainer import TrainConfig, Trainer
+    from PIL import Image
+
+    tr = Trainer(TrainConfig(batch_size=BATCH, compute_dtype="bf16"),
+                 device="cuda")
+    names = sorted((work / "train_set" / "images").glob("*.png"))[:BATCH]
+    imgs = torch.from_numpy(np.stack([decode_rgb(p) for p in names])).cuda()
+    masks = torch.from_numpy(np.stack([
+        (np.array(Image.open(work / "train_set" / "masks" / p.name)) > 0)
+        .astype(np.uint8) for p in names])).cuda()
+    x, m = tr.preprocess(imgs, masks)
+    m = m[..., None]
+    valid = torch.ones(BATCH, device="cuda")
+    for _ in range(warmup):
+        tr.train_step(x, m, valid)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    losses = []
+    t0 = time.perf_counter()
+    for a, b in ev:
+        a.record()
+        losses.append(tr.train_step(x, m, valid)[0])
+        b.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps
+    ms = [a.elapsed_time(b) for a, b in ev]
+    step_ms = statistics.median(ms)
+    losses = [float(v) for v in losses]
+    flops = 3 * BATCH * unet_forward_flops(512, 512)
+    r = {"phase": "train_step", "batch": BATCH, "size": "512x512",
+         "dtype": "bf16", "steps": reps, "step_ms_median": step_ms,
+         "step_ms_min": min(ms), "step_ms_max": max(ms),
+         "wall_ms_per_step": wall * 1e3,
+         "img_per_s": BATCH / (step_ms / 1e3),
+         "model_tflop_per_step": flops / 1e12,
+         "bound_ms": flops / PEAK_OPS["bf16"] * 1e3,
+         "mfu": flops / (step_ms / 1e3) / PEAK_OPS["bf16"],
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "loss_first": losses[0], "loss_last": losses[-1]}
+    r["device_profile"] = profile_step(lambda: tr.train_step(x, m, valid),
+                                       step_ms)
+    check(all(math.isfinite(v) for v in losses), "non-finite step loss")
+    check(losses[-1] < losses[0],
+          f"loss did not fall over the timed steps: {losses}")
+    return r
+
+
+KERNEL_CLASSES = (
+    ("conv (cuDNN)", re.compile(r"conv|cudnn|xmma|implicit|wgrad|dgrad|"
+                                r"fprop|sm90|cutlass|gemm", re.I)),
+    ("adam", re.compile(r"adam", re.I)),
+    ("batchnorm/elementwise/reduce", re.compile(r".")))
+
+
+def profile_step(fn, step_ms: float, top: int = 12):
+    """Device time of one call of `fn` by kernel class and the top
+    kernels (torch.profiler, CUDA activity), and the share of the step's
+    event time in which no kernel ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t, n = per_name.get(e.name, (0.0, 0))
+            per_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    classes = {c: 0.0 for c, _ in KERNEL_CLASSES}
+    for name, (t, _) in per_name.items():
+        c = next(c for c, rx in KERNEL_CLASSES if rx.search(name))
+        classes[c] += t
+    busy = sum(classes.values())
+    return {"device_busy_ms": busy, "idle_share": max(0.0, 1 - busy / step_ms),
+            "by_class_ms": classes,
+            "top_kernels": [{"name": n[:90], "ms": t, "count": k} for n, (t, k)
+                            in sorted(per_name.items(),
+                                      key=lambda kv: -kv[1][0])[:top]]}
+
+
+def card_vs_cpu_step(work: Path):
+    """One train step at 128x128, batch 2, from the same seeded weights on
+    the card and on the CPU, in f32 (TF32 off) and in f64. The conv biases
+    that precede a BatchNorm (true gradient 0) are left out.
+      - f32: loss within 1e-5 relative; every gradient within 1e-4
+        relative L2 of the CPU's, except where f32 itself cannot hold 1e-4:
+        behind the deep train-mode BatchNorms (8x8 to 32x32 maps at this
+        size) the backward pass cancels ~1000-fold, so the rounding of the
+        card's f32 reductions shows (the CPU accumulates them in f64). The
+        card's own floor is the same step computed another valid f32 way:
+        the batch in the other order and NCHW memory instead of
+        channels-last (other cuDNN and BatchNorm kernels, other reduction
+        orders; the same gradient in exact arithmetic). Where that floor
+        passes 2.5e-5, the card must be within 4x it of the CPU. The
+        BatchNorm scale and shift gradients are single f32 sums over
+        N*H*W terms that largely cancel, rounded alike by both of the
+        card's kernels but not by the CPU's f64 accumulation: held within
+        1e-3.
+      - f64: every gradient within 1e-6 relative L2 of the CPU's: the card
+        computes the same function, the f32 gaps are rounding."""
+    import numpy as np
+    import torch
+
+    from unetdc_tpu_torch.io.images import decode_rgb
+    from unetdc_tpu_torch.train.trainer import TrainConfig, Trainer
+    from PIL import Image
+
+    cfg = TrainConfig(img_size=128, batch_size=2, compute_dtype="f32",
+                      augment=False, seed=3)
+    names = sorted((work / "train_set" / "images").glob("*.png"))[:2]
+    imgs = np.stack([decode_rgb(p) for p in names])
+    masks = np.stack([(np.array(Image.open(
+        work / "train_set" / "masks" / p.name)) > 0).astype(np.uint8)
+        for p in names])
+    grads, loss = {}, {}
+    for run, dev, dt, order in (
+            ("card", "cuda", torch.float32, [0, 1]),
+            ("card_other", "cuda", torch.float32, [1, 0]),
+            ("cpu", "cpu", torch.float32, [0, 1]),
+            ("card_f64", "cuda", torch.float64, [0, 1]),
+            ("cpu_f64", "cpu", torch.float64, [0, 1])):
+        tr = Trainer(cfg, device=dev)
+        tr.model.to(dt).compute_dtype = dt
+        x, m = tr.preprocess(torch.from_numpy(imgs[order]).to(dev),
+                             torch.from_numpy(masks[order]).to(dev))
+        if run == "card_other":   # NCHW memory under the model's permute
+            x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        met = tr.train_step(x.to(dt), m[..., None].to(dt),
+                            torch.ones(2, device=dev, dtype=dt))
+        loss[run] = float(met[0])
+        grads[run] = {n: p.grad.detach().double().cpu()
+                      for n, p in tr.model.named_parameters()}
+
+    def rel(run, ref, n):
+        return float((grads[run][n] - grads[ref][n]).norm()
+                     / grads[ref][n].norm())
+
+    rows = {}
+    for n in grads["cpu"]:
+        parts = n.split(".")
+        if not parts[0].startswith(("upconv", "out_conv")) \
+                and parts[1] in ("0", "3") and parts[2] == "bias":
+            continue          # conv bias before a BatchNorm
+        rows[n] = (rel("card", "cpu", n), rel("card_other", "card", n),
+                   rel("card_f64", "cpu_f64", n))
+    held = [n for n, r in rows.items() if r[0] <= 1e-4]
+    floor = [n for n, r in rows.items() if r[0] > 1e-4 and r[1] > 2.5e-5]
+    bn_affine = [n for n in rows if n.split(".")[1] in ("1", "4")]
+    bad32 = [n for n, r in rows.items() if n not in held and not (
+        n in floor and r[0] <= 4 * r[1]) and not (
+        n in bn_affine and r[0] <= 1e-3)]
+    bad64 = [n for n, r in rows.items() if r[2] > 1e-6]
+    loss_rel = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
+    loss_rel64 = abs(loss["card_f64"] - loss["cpu_f64"]) / loss["cpu_f64"]
+    worst = max(floor or rows, key=lambda n: rows[n][0] / rows[n][1])
+    r = {"phase": "train_f32_card_vs_cpu", "size": "128x128", "batch": 2,
+         "loss_card": loss["card"], "loss_cpu": loss["cpu"],
+         "loss_rel_diff": loss_rel, "loss_rel_diff_f64": loss_rel64,
+         "grads_compared": len(rows), "within_1e-4": len(held),
+         "at_f32_floor": len(floor),
+         "bn_affine_over_1e-4_not_at_floor": [
+             n for n in bn_affine if rows[n][0] > 1e-4 and n not in floor],
+         "grad_rel_l2_max_held": max((rows[n][0] for n in held),
+                                     default=0.0),
+         "floor_worst": {"param": worst, "card_vs_cpu": rows[worst][0],
+                         "card_floor": rows[worst][1]},
+         "grad_rel_l2_max_f64": max(v[2] for v in rows.values()),
+         "failed": bad32 + bad64}
+    check(loss_rel <= 1e-5 and loss_rel64 <= 1e-9,
+          f"loss card vs CPU: f32 {loss_rel}, f64 {loss_rel64}")
+    check(not bad32 and not bad64,
+          "gradients card vs CPU (f32 card-cpu, f32 card floor, f64 "
+          f"card-cpu relative L2): { {n: rows[n] for n in bad32 + bad64} }")
+    return r
+
+
 def main() -> int:
     import torch
 
@@ -663,6 +1063,10 @@ def main() -> int:
         # bf16: a one-ulp rounding difference in enc1 propagates through
         # the whole network; a sanity bound only (see PERF.md)
         check(bf_mis < 5e-2 and x_mis < 5e-2, "bf16 path mask mismatch")
+
+        emit(train_phase(work, cb))
+        emit(train_step_timing(work))
+        emit(card_vs_cpu_step(work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -13,7 +13,9 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def test_port_imports_no_jax():
     """Import every module of unetdc_tpu_torch, plus chip_smoke.py, in a
-    fresh interpreter: neither jax nor unetdc_tpu may be loaded."""
+    fresh interpreter: neither jax (flax, optax) nor unetdc_tpu may be
+    loaded, nor sklearn or msgpack: the port carries its own split and
+    msgpack codec."""
     code = r"""
 import importlib, pkgutil, sys, runpy
 sys.path.insert(0, {root!r})
@@ -25,10 +27,15 @@ for n in names:
 runpy.run_path({smoke!r}, run_name="chip_smoke_import")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                    "unetdc_tpu"))
+                                    "unetdc_tpu", "sklearn", "msgpack"))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 15, names
+assert len(names) >= 30, names
+for n in ("losses", "data.augment", "data.dataset", "train.trainer",
+          "train.test_phase", "utils.summary", "cli.train",
+          "cli.train_dc_focal", "checkpoint.native", "ops.diffmap",
+          "ops.filters"):
+    assert "unetdc_tpu_torch." + n in names, n
 """
     r = subprocess.run([sys.executable, "-c", code.format(
         root=str(ROOT), smoke=str(ROOT / "chip_smoke.py"))],
@@ -56,8 +63,74 @@ def test_engine_defaults_to_cuda(monkeypatch, tmp_path):
     make_decisive_checkpoint(str(ckpt), seed=1, img_size=32)
     with pytest.raises(RuntimeError, match="CUDA"):
         load_engine(str(ckpt))
-    with pytest.raises(ValueError, match=".pth"):
-        load_engine(str(tmp_path / "m.msgpack"), device="cpu")
+
+
+def test_engine_loads_jax_msgpack_checkpoint(tmp_path):
+    """A msgpack checkpoint written by the JAX package's save_checkpoint
+    loads into the port's engine (CPU), and its masks and droplet tables
+    equal those of the same weights loaded as a .pth."""
+    import numpy as np
+
+    from tests.torch_reference import make_decisive_checkpoint
+    from unetdc_tpu.checkpoint import (load_pth_state_dict,
+                                       torch_state_dict_to_variables)
+    from unetdc_tpu.checkpoint.native import save_checkpoint
+    from unetdc_tpu_torch.pipelines.engine import load_engine
+
+    pth = tmp_path / "m.pth"
+    make_decisive_checkpoint(str(pth), seed=2, img_size=32)
+    mp = tmp_path / "m.msgpack"
+    save_checkpoint(str(mp), torch_state_dict_to_variables(
+        load_pth_state_dict(str(pth))))
+    r = np.random.RandomState(0)
+    imgs = (r.rand(2, 40, 48, 3) * 255).astype(np.uint8)
+    out = []
+    for path in (pth, mp):
+        eng = load_engine(str(path), fast=False, device="cpu")
+        eng.img_size = 32
+        out.append(eng.run_batch(imgs, (40, 48), background_radius=5))
+    assert out[0]["mask"].any() and not out[0]["mask"].all()
+    for k in out[0]:
+        np.testing.assert_array_equal(out[1][k], out[0][k], err_msg=k)
+    pth.unlink()
+    mp.unlink()
+
+
+@pytest.mark.parametrize("which", ["trainer", "train_dc_focal", "train"])
+def test_train_entry_points_default_to_cuda(monkeypatch, tmp_path, which):
+    """Trainer and both train CLIs run on the card unless asked, and raise
+    (no CPU fallback) when there is none."""
+    import inspect
+
+    from unetdc_tpu_torch.cli import train, train_dc_focal
+    from unetdc_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if which == "trainer":
+        assert inspect.signature(Trainer).parameters["device"].default \
+            == "cuda"
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Trainer(TrainConfig(img_size=32))
+        return
+    cli = {"train": train, "train_dc_focal": train_dc_focal}[which]
+    args = cli.build_parser().parse_args(["--image_dir", "x",
+                                          "--mask_dir", "y"])
+    assert args.device == "cuda"
+    from PIL import Image
+    import numpy as np
+
+    for sub in ("img", "msk"):
+        (tmp_path / sub).mkdir()
+        for i in range(5):
+            Image.fromarray(np.zeros((8, 8), np.uint8)).save(
+                tmp_path / sub / f"{i}.png")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--image_dir", "img", "--mask_dir", "msk",
+                  "--img_size", "32"])
+    with pytest.raises(SystemExit, match="item 10"):
+        cli.main(["--image_dir", "img", "--mask_dir", "msk",
+                  "--data_parallel", "2"])
 
 
 def test_kernel_wrappers_take_plain_version_only_on_cpu(monkeypatch):

@@ -3,74 +3,238 @@
 Same architecture as the JAX package's `models/unet.py` (reference
 models/model.py `UNet`, models/model_2.py `UNetDC`): double 3x3 convs with
 BatchNorm, dilations 1/2/4/8/16 in the UNetDC encoder, 2x2 stride-2
-transposed-conv upsampling, a 1x1 head and the sigmoid inside `forward`.
-Module names follow the reference state dict (`enc1.0.weight`, ...,
-`upconv4.weight`, `out_conv.weight`), so a reference `.pth` loads directly.
+transposed-conv upsampling, a 1x1 head and, by default, the sigmoid inside
+`forward`. Module names follow the reference state dict (`enc1.0.weight`,
+..., `upconv4.weight`, `out_conv.weight`), so a reference `.pth` loads
+directly.
 
 `forward` takes and returns NHWC tensors, like the JAX package, so the two
 are compared like with like; the convolutions run NCHW-logical on a
 channels-last view.
+
+Training follows the JAX package's flax module, not `nn.BatchNorm2d`:
+  - `apply_sigmoid=False` returns logits (the trainer's losses work in
+    logits space);
+  - dtype policy: f32 master weights; the convs and upconvs run in
+    `compute_dtype` (inputs and weights cast at use, bias added in that
+    dtype after the product, as flax's `nn.Conv` does), BatchNorm always
+    in f32 (f64 for an f64 model, as flax promotes its statistics to at
+    least f32) with the exact two-pass variance, cast back after;
+  - train-mode BatchNorm normalizes with the batch statistics over the
+    samples `sample_mask` (B,) keeps (one fused `native_batch_norm` when
+    all are kept, explicit f32 ops otherwise), and updates the running
+    statistics
+    flax's way: `ra = 0.9 * ra + (1 - 0.9) * stat` with the BIASED batch
+    variance (`nn.BatchNorm2d` stores the unbiased one);
+  - `remat=True` recomputes each double-conv block in the backward pass
+    (`torch.utils.checkpoint`, non-reentrant). The block is a pure function
+    that returns its batch statistics; the running statistics are updated
+    outside it, so a recompute cannot update them twice;
+  - `init_flax_` draws flax's initializers from an explicit generator.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9          # flax convention: ra = m * ra + (1 - m) * batch
 _BLOCKS = ("enc1", "enc2", "enc3", "enc4", "bottleneck",
            "dec4", "dec3", "dec2", "dec1")
 
 
-def double_conv(cin: int, cout: int, dilation: int) -> nn.Sequential:
-    """(Conv3x3 -> BN -> ReLU) x 2, padding == dilation (models/model_2.py)."""
-    return nn.Sequential(
-        nn.Conv2d(cin, cout, 3, padding=dilation, dilation=dilation),
-        nn.BatchNorm2d(cout, eps=BN_EPS),
-        nn.ReLU(inplace=True),
-        nn.Conv2d(cout, cout, 3, padding=dilation, dilation=dilation),
-        nn.BatchNorm2d(cout, eps=BN_EPS),
-        nn.ReLU(inplace=True),
-    )
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm with flax's semantics (parameter and buffer names of
+    `nn.BatchNorm2d`): f32 statistics, `(x - mean) * (rsqrt(var + eps) *
+    scale) + bias`, masked batch statistics in train mode."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=BN_EPS)
+
+    def normalize(self, x32: torch.Tensor, mean: torch.Tensor,
+                  var: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x32 - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+
+    def fused(self, y: torch.Tensor, train: bool):
+        """Normalize y (the conv output, compute dtype) with one fused
+        BatchNorm (torch.native_batch_norm: statistics and normalization
+        accumulate in f32, or f64 for f64 input, the output is cast back to
+        y's dtype, as the flax module casts after its f32 norm). Train mode
+        uses the whole batch and also returns its mean and biased variance
+        (recovered from the saved inverse std) for the running update."""
+        if not train:
+            return F.batch_norm(y, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0,
+                                self.eps), None, None
+        out, mean, invstd = torch.native_batch_norm(
+            y, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            var = invstd.double().pow(-2).sub(self.eps).to(mean.dtype)
+        return out, mean.detach(), var
+
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        with torch.no_grad():
+            self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                    + (1 - BN_MOMENTUM) * mean)
+            self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                   + (1 - BN_MOMENTUM) * var)
+
+
+def batch_stats(x32: torch.Tensor, sample_mask: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel mean and biased variance of (B, C, H, W) f32 over the
+    samples `sample_mask` keeps (flax `_compute_stats` with a mask,
+    use_fast_variance=False: var = mean((x - mean)^2))."""
+    keep = sample_mask.to(torch.bool)[:, None, None, None]
+    n = keep.sum() * x32.shape[2] * x32.shape[3]
+    mean = torch.where(keep, x32, 0).sum((0, 2, 3)) / n
+    dev = x32 - mean[:, None, None]
+    var = torch.where(keep, dev * dev, 0).sum((0, 2, 3)) / n
+    return mean, var
+
+
+# dilated convs at or above this dilation run as undilated convs on the
+# dilation's phase sub-images (see `_conv_phases`)
+PHASE_MIN_DILATION = 16
+
+
+def _conv_phases(x: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
+    """A 3x3 conv with dilation d and padding d, computed as an undilated
+    3x3 conv (padding 1) on each of the d*d phase sub-images x[..., i::d,
+    j::d] stacked into the batch: the same taps and zeros for every output,
+    so the same arithmetic. cuDNN's dilated kernels are slow where the
+    dilation is a large share of the map (the bottleneck's backward at
+    dilation 16 on 32x32 maps). Channels-last memory throughout."""
+    b, c, h, wd = x.shape
+    xs = (x.permute(0, 2, 3, 1).reshape(b, h // d, d, wd // d, d, c)
+          .permute(0, 2, 4, 1, 3, 5).reshape(b * d * d, h // d, wd // d, c))
+    y = F.conv2d(xs.permute(0, 3, 1, 2), w, None, 1, 1)
+    o = y.shape[1]
+    return (y.permute(0, 2, 3, 1).reshape(b, d, d, h // d, wd // d, o)
+            .permute(0, 3, 1, 4, 2, 5).reshape(b, h, wd, o)
+            .permute(0, 3, 1, 2))
+
+
+def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype
+          ) -> torch.Tensor:
+    """flax nn.Conv(dtype=...): input and kernel cast to `dtype`, product
+    in `dtype`, bias (cast) added after."""
+    x, w = x.to(dtype), conv.weight.to(dtype)
+    d = conv.dilation[0]
+    if d >= PHASE_MIN_DILATION and x.shape[-2] % d == 0 \
+            and x.shape[-1] % d == 0:
+        y = _conv_phases(x, w, d)
+    else:
+        y = F.conv2d(x, w, None, conv.stride, conv.padding, conv.dilation)
+    return y + conv.bias.to(dtype)[:, None, None]
+
+
+class DoubleConv(nn.Sequential):
+    """(Conv3x3 -> BN -> ReLU) x 2, padding == dilation (models/model_2.py);
+    Sequential indices 0/1/3/4 keep the reference's state-dict keys."""
+
+    def __init__(self, cin: int, cout: int, dilation: int):
+        super().__init__(
+            nn.Conv2d(cin, cout, 3, padding=dilation, dilation=dilation),
+            BatchNorm(cout), nn.ReLU(),
+            nn.Conv2d(cout, cout, 3, padding=dilation, dilation=dilation),
+            BatchNorm(cout), nn.ReLU())
+
+    def run(self, x: torch.Tensor, dtype: torch.dtype, train: bool,
+            sample_mask: Optional[torch.Tensor]):
+        """Pure block function: (output, batch statistics of both BNs, or
+        () in eval mode)."""
+        stats = []
+        bn_dtype = torch.promote_types(dtype, torch.float32)  # f64 stays
+        for conv, bn in ((self[0], self[1]), (self[3], self[4])):
+            y = _conv(conv, x, dtype)
+            if sample_mask is None or not train:
+                y, mean, var = bn.fused(y, train)
+            else:
+                x32 = y.to(bn_dtype)
+                mean, var = batch_stats(x32, sample_mask)
+                y = bn.normalize(x32, mean, var).to(dtype)
+            if train:
+                stats += [mean, var]
+            x = torch.relu(y)
+        return (x, *stats)
+
+    def forward(self, x, dtype=torch.float32, sample_mask=None,
+                remat: bool = False):
+        train = self.training
+        if remat and torch.is_grad_enabled():
+            out = checkpoint(self.run, x, dtype, train, sample_mask,
+                             use_reentrant=False)
+        else:
+            out = self.run(x, dtype, train, sample_mask)
+        if train:
+            self[1].update_running(out[1], out[2])
+            self[4].update_running(out[3], out[4])
+        return out[0]
 
 
 class _UNetBase(nn.Module):
     dilations: Tuple[int, int, int, int, int] = (1, 1, 1, 1, 1)
 
-    def __init__(self, in_channels: int = 3, out_channels: int = 1):
+    def __init__(self, in_channels: int = 3, out_channels: int = 1,
+                 compute_dtype: torch.dtype = torch.float32,
+                 apply_sigmoid: bool = True, remat: bool = False):
         super().__init__()
+        self.compute_dtype = compute_dtype
+        self.apply_sigmoid = apply_sigmoid
+        self.remat = remat
         d = self.dilations
-        self.enc1 = double_conv(in_channels, 64, d[0])
-        self.enc2 = double_conv(64, 128, d[1])
-        self.enc3 = double_conv(128, 256, d[2])
-        self.enc4 = double_conv(256, 512, d[3])
-        self.bottleneck = double_conv(512, 1024, d[4])
+        self.enc1 = DoubleConv(in_channels, 64, d[0])
+        self.enc2 = DoubleConv(64, 128, d[1])
+        self.enc3 = DoubleConv(128, 256, d[2])
+        self.enc4 = DoubleConv(256, 512, d[3])
+        self.bottleneck = DoubleConv(512, 1024, d[4])
         self.upconv4 = nn.ConvTranspose2d(1024, 512, 2, 2)
-        self.dec4 = double_conv(1024, 512, 1)
+        self.dec4 = DoubleConv(1024, 512, 1)
         self.upconv3 = nn.ConvTranspose2d(512, 256, 2, 2)
-        self.dec3 = double_conv(512, 256, 1)
+        self.dec3 = DoubleConv(512, 256, 1)
         self.upconv2 = nn.ConvTranspose2d(256, 128, 2, 2)
-        self.dec2 = double_conv(256, 128, 1)
+        self.dec2 = DoubleConv(256, 128, 1)
         self.upconv1 = nn.ConvTranspose2d(128, 64, 2, 2)
-        self.dec1 = double_conv(128, 64, 1)
+        self.dec1 = DoubleConv(128, 64, 1)
         self.out_conv = nn.Conv2d(64, out_channels, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, C) -> (B, H, W, out) probabilities."""
-        x = x.permute(0, 3, 1, 2)
-        e1 = self.enc1(x)
-        e2 = self.enc2(F.max_pool2d(e1, 2))
-        e3 = self.enc3(F.max_pool2d(e2, 2))
-        e4 = self.enc4(F.max_pool2d(e3, 2))
-        b = self.bottleneck(F.max_pool2d(e4, 2))
-        d4 = self.dec4(torch.cat([self.upconv4(b), e4], 1))
-        d3 = self.dec3(torch.cat([self.upconv3(d4), e3], 1))
-        d2 = self.dec2(torch.cat([self.upconv2(d3), e2], 1))
-        d1 = self.dec1(torch.cat([self.upconv1(d2), e1], 1))
-        return torch.sigmoid(self.out_conv(d1).float()).permute(0, 2, 3, 1)
+    def _up(self, up: nn.ConvTranspose2d, x: torch.Tensor) -> torch.Tensor:
+        """flax UpConv2x2: product in the compute dtype, bias added after."""
+        dt = self.compute_dtype
+        y = F.conv_transpose2d(x, up.weight.to(dt), None, stride=2)
+        return y + up.bias.to(dt)[:, None, None]
+
+    def forward(self, x: torch.Tensor,
+                sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, H, W, C) -> (B, H, W, out): probabilities, or logits when
+        `apply_sigmoid` is False; float32 (float64 for a float64 model). `sample_mask` (B,)
+        excludes samples from the train-mode batch statistics."""
+        dt = self.compute_dtype
+        kw = dict(dtype=dt, sample_mask=sample_mask, remat=self.remat)
+        x = x.permute(0, 3, 1, 2).to(dt)
+        e1 = self.enc1(x, **kw)
+        e2 = self.enc2(F.max_pool2d(e1, 2), **kw)
+        e3 = self.enc3(F.max_pool2d(e2, 2), **kw)
+        e4 = self.enc4(F.max_pool2d(e3, 2), **kw)
+        b = self.bottleneck(F.max_pool2d(e4, 2), **kw)
+        d4 = self.dec4(torch.cat([self._up(self.upconv4, b), e4], 1), **kw)
+        d3 = self.dec3(torch.cat([self._up(self.upconv3, d4), e3], 1), **kw)
+        d2 = self.dec2(torch.cat([self._up(self.upconv2, d3), e2], 1), **kw)
+        d1 = self.dec1(torch.cat([self._up(self.upconv1, d2), e1], 1), **kw)
+        out = _conv(self.out_conv, d1, dt).to(
+            torch.promote_types(dt, torch.float32))
+        if self.apply_sigmoid:
+            out = torch.sigmoid(out)
+        return out.permute(0, 2, 3, 1)
 
 
 class UNet(_UNetBase):
@@ -84,6 +248,40 @@ class UNetDC(_UNetBase):
     (reference models/model_2.py)."""
 
     dilations = (1, 2, 4, 8, 16)
+
+
+# flax variance_scaling "truncated_normal": a standard normal truncated to
+# [-2, 2] has this std; dividing by it makes the kernel's std sqrt(1/fan_in)
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_flax_(model: _UNetBase, generator: torch.Generator) -> _UNetBase:
+    """Re-initialize `model` in place with the JAX package's initializers
+    (flax defaults), drawn from `generator`:
+      - conv kernels lecun_normal: truncated normal, std sqrt(1/fan_in),
+        fan_in = kh * kw * in_channels; conv biases 0;
+      - BatchNorm scale 1, bias 0, running mean 0, running var 1;
+      - upconv kernels variance_scaling(1/3, "fan_in", "uniform") on the
+        (I, O, 2, 2) kernel with flax's default axes (in = -2, out = -1),
+        so fan_in = 2 * I * O and the bound is sqrt(1 / (2 * I * O));
+        upconv biases 0.
+    The JAX and torch random streams differ; the distributions match."""
+    for mod in model.modules():
+        if isinstance(mod, nn.ConvTranspose2d):
+            i, o = mod.weight.shape[:2]
+            bound = math.sqrt(3.0 * (1.0 / 3.0) / (2 * i * o))
+            mod.weight.uniform_(-bound, bound, generator=generator)
+            mod.bias.zero_()
+        elif isinstance(mod, nn.Conv2d):
+            fan_in = mod.weight[0].numel()
+            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            nn.init.trunc_normal_(mod.weight, 0.0, std, -2.0 * std,
+                                  2.0 * std, generator=generator)
+            mod.bias.zero_()
+        elif isinstance(mod, BatchNorm):
+            mod.reset_parameters()
+    return model
 
 
 def fold_batchnorm(state_dict: Dict[str, torch.Tensor]

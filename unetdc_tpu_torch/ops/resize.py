@@ -10,7 +10,9 @@ coefficients with the SIMD path's intermediate truncations, in int32,
     out = (((b0 * (row0 >> 4)) >> 16) + ((b1 * (row1 >> 4)) >> 16) + 2) >> 2
 
 with the source taps picked by `index_select` (the TPU version used one-hot
-matmuls).
+matmuls). The trainer and its test phase also use the JAX package's true
+INTER_NEAREST (`resize_nearest`) and float-weight uint8 INTER_LINEAR
+(`resize_linear_u8`).
 """
 
 from __future__ import annotations
@@ -60,3 +62,54 @@ def resize_linear_u8_cv2exact(img: torch.Tensor, out_hw: Tuple[int, int]
     r1 = row.index_select(-2, y1c.long()) >> 4
     out = (((by0[:, None] * r0) >> 16) + ((by1[:, None] * r1) >> 16) + 2) >> 2
     return out.to(torch.uint8)
+
+
+def _nearest_index(src: int, dst: int) -> np.ndarray:
+    """cv2 INTER_NEAREST source index per dst pixel: floor(d * src/dst)."""
+    idx = np.floor(np.arange(dst) * (src / dst)).astype(np.int64)
+    return np.clip(idx, 0, src - 1)
+
+
+def resize_nearest(img: torch.Tensor, out_hw: Tuple[int, int],
+                   dims: Tuple[int, int] = (-2, -1)) -> torch.Tensor:
+    """True cv2 INTER_NEAREST resize of the two dims `dims` (default the
+    last two) to (oh, ow)."""
+    oh, ow = out_hw
+    dy, dx = dims
+    h, w = img.shape[dy], img.shape[dx]
+    iy = torch.from_numpy(_nearest_index(h, oh)).to(img.device)
+    ix = torch.from_numpy(_nearest_index(w, ow)).to(img.device)
+    return img.index_select(dy, iy).index_select(dx, ix)
+
+
+def _linear_weights(src: int, dst: int) -> np.ndarray:
+    """(dst, src) bilinear weight matrix, cv2 INTER_LINEAR convention
+    (half-pixel centres, edge clamp) with 11-bit quantized weights."""
+    w = np.zeros((dst, src), np.float32)
+    scale = src / dst
+    for d in range(dst):
+        sx = (d + 0.5) * scale - 0.5
+        x0 = int(np.floor(sx))
+        fq = np.rint((sx - x0) * 2048.0) / 2048.0
+        w[d, min(max(x0, 0), src - 1)] += 1.0 - fq
+        w[d, min(max(x0 + 1, 0), src - 1)] += fq
+    return w
+
+
+def resize_linear_u8(img: torch.Tensor, out_hw: Tuple[int, int]
+                     ) -> torch.Tensor:
+    """INTER_LINEAR resize of (H, W) or (H, W, C) to uint8, the JAX
+    package's `resize_linear_u8`: two f32 weight-matrix products (rows,
+    then columns) and floor(v + 0.5). It may differ from cv2 by 1 at exact
+    fixed-point rounding ties."""
+    oh, ow = out_hw
+    h, w = img.shape[:2]
+    dev = img.device
+    wy = torch.from_numpy(_linear_weights(h, oh)).to(dev)
+    wx = torch.from_numpy(_linear_weights(w, ow)).to(dev)
+    x = img.to(torch.float32)
+    if x.dim() == 2:
+        y = wy @ x @ wx.T
+    else:
+        y = torch.einsum("ew,dwc->dec", wx, torch.einsum("dh,hwc->dwc", wy, x))
+    return torch.clamp(torch.floor(y + 0.5), 0, 255).to(torch.uint8)

@@ -193,14 +193,19 @@ class QuantifyEngine:
 def load_engine(ckpt_path: str, fast: bool = True, model_cls=UNetDC,
                 max_labels: int = 4096, device="cuda",
                 kernels: bool = True) -> QuantifyEngine:
-    """Engine from a reference `.pth` checkpoint. `fast` selects bf16
-    (default) over f32."""
-    from unetdc_tpu_torch.checkpoint.convert import load_pth_state_dict
+    """Engine from a reference `.pth` checkpoint or a native msgpack
+    {'params', 'batch_stats'} checkpoint (either package's trainer writes
+    one), as the JAX engine's `load_engine`. `fast` selects bf16 (default)
+    over f32."""
+    from unetdc_tpu_torch.checkpoint.convert import (load_pth_state_dict,
+                                                     variables_to_state_dict)
+    from unetdc_tpu_torch.checkpoint.native import load_checkpoint
 
-    if not str(ckpt_path).endswith(".pth"):
-        raise ValueError(f"{ckpt_path}: the port loads reference .pth "
-                         "checkpoints")
-    return QuantifyEngine(load_pth_state_dict(ckpt_path), model_cls=model_cls,
+    if str(ckpt_path).endswith(".pth"):
+        state_dict = load_pth_state_dict(ckpt_path)
+    else:
+        state_dict = variables_to_state_dict(load_checkpoint(str(ckpt_path)))
+    return QuantifyEngine(state_dict, model_cls=model_cls,
                           compute_dtype=torch.bfloat16 if fast
                           else torch.float32, max_labels=max_labels,
                           device=device, kernels=kernels)
