@@ -42,7 +42,24 @@ Phases, each printing one JSON line:
                one step on the card and on the CPU from the same weights
                (`train_f32_card_vs_cpu` line: f32 with TF32 off and f64;
                see `card_vs_cpu_step` for the tolerances).
-Then the card's name and power limit, and as the last line
+  7. int8    — the port CLI with --int8 over the 16 images: K3 launched,
+               K1/K2 not; the calibration sidecar written, and a second
+               run that loads it gives byte-equal masks and CSVs; the
+               card's forward_int8 against the CPU's on 2 images at
+               128x128 from the same int8 params (equal 0.3 mask,
+               probabilities within 1e-6); mask agreement with the f32
+               kernel path; the int8 forward's ms per batch of 8 at 512x512
+               beside the bf16 kernel forward's, its peak memory and a
+               torch.profiler split (reported, not gated).
+  8. heatmaps — HeatmapV1Engine and BlobInspectorEngine (CLI defaults:
+               kernel 55, 3 rings, contour threshold 0, min size 20), bf16,
+               over the 16 images at full width: K1/K2/K3 launch counts
+               and megastep ms of each engine; each engine's heatmap stage
+               on the card and on the CPU from the card's masks and
+               tables: ROI, Otsu thresholds, radial_u8, target_pct,
+               conv_pct and remove_small_batch equal, spatial_u8 within 1.
+Then the `kernels` line (with each kernel's launches on every path), the
+card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: the script exits
 nonzero and prints no result. It needs CUDA and the rest of the checkout.
 """
@@ -65,8 +82,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-# dense tensor-core bf16; f32 (and 32-bit integer adds) off the tensor cores
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+# dense tensor-core bf16 and int8; f32 (and 32-bit integer adds) off the
+# tensor cores
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 BATCH = 8
 PX_PER_UM = 3.45
 
@@ -131,13 +149,14 @@ def make_images(d: Path, seed: int = 7):
 
 
 # ------------------------------------------------------------------ cli --
-def run_cli(img_dir, ckpt, out_dir, precision="bf16"):
+def run_cli(img_dir, ckpt, out_dir, precision="bf16", int8=False):
     from unetdc_tpu_torch.cli.quantify_droplets_batch import main
 
     return main(["--img_dir", str(img_dir), "--ckpt_path", str(ckpt),
                  "--out_dir", str(out_dir), "--batch", str(BATCH),
                  "--precision", precision, "--device", "cuda",
-                 "--save_overlays", "--px_per_micron", str(PX_PER_UM)])
+                 "--save_overlays", "--px_per_micron", str(PX_PER_UM)]
+                + (["--int8"] if int8 else []))
 
 
 def check_artifacts(img_dir, out_dir, need_droplets: bool = True):
@@ -849,9 +868,16 @@ KERNEL_CLASSES = (
                                 r"fprop|sm90|cutlass|gemm", re.I)),
     ("adam", re.compile(r"adam", re.I)),
     ("batchnorm/elementwise/reduce", re.compile(r".")))
+INT8_CLASSES = (
+    ("int8 product (cuBLASLt)", re.compile(r"gemm|imma|xmma|sm90|cutlass|"
+                                           r"cublas", re.I)),
+    ("copies and fills (im2col, padding, dtype conversions)",
+     re.compile(r"copy|fill|cat|index", re.I)),
+    ("requant/pool/elementwise", re.compile(r".")))
 
 
-def profile_step(fn, step_ms: float, top: int = 12):
+def profile_step(fn, step_ms: float, top: int = 12,
+                 classes=KERNEL_CLASSES):
     """Device time of one call of `fn` by kernel class and the top
     kernels (torch.profiler, CUDA activity), and the share of the step's
     event time in which no kernel ran."""
@@ -867,13 +893,13 @@ def profile_step(fn, step_ms: float, top: int = 12):
         if e.device_type == DeviceType.CUDA:
             t, n = per_name.get(e.name, (0.0, 0))
             per_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
-    classes = {c: 0.0 for c, _ in KERNEL_CLASSES}
+    by_class = {c: 0.0 for c, _ in classes}
     for name, (t, _) in per_name.items():
-        c = next(c for c, rx in KERNEL_CLASSES if rx.search(name))
-        classes[c] += t
-    busy = sum(classes.values())
+        c = next(c for c, rx in classes if rx.search(name))
+        by_class[c] += t
+    busy = sum(by_class.values())
     return {"device_busy_ms": busy, "idle_share": max(0.0, 1 - busy / step_ms),
-            "by_class_ms": classes,
+            "by_class_ms": by_class,
             "top_kernels": [{"name": n[:90], "ms": t, "count": k} for n, (t, k)
                             in sorted(per_name.items(),
                                       key=lambda kv: -kv[1][0])[:top]]}
@@ -975,6 +1001,181 @@ def card_vs_cpu_step(work: Path):
     return r
 
 
+# ----------------------------------------------------------------- int8 --
+def int8_phase(work: Path, img_dir: Path, ckpt: Path, cb, bf16_engine):
+    """The int8 forward through the port CLI, its sidecar, card vs CPU,
+    agreement with the f32 kernel path and its time (see the docstring)."""
+    import numpy as np
+    import torch
+
+    from unetdc_tpu_torch.io.images import decode_rgb
+    from unetdc_tpu_torch.models import unet_int8 as qi
+    from unetdc_tpu_torch.pipelines.engine import grayscale_view
+
+    t0 = time.perf_counter()
+    sidecar = Path(str(ckpt) + ".int8calib.npz")
+    if sidecar.exists():
+        sidecar.unlink()
+    torch.cuda.synchronize()
+    cb.reset_launches()
+    pipe = run_cli(img_dir, ckpt, work / "int8_a", int8=True)
+    torch.cuda.synchronize()
+    launches = dict(cb.LAUNCHES)
+    check(launches.get("component_tables", 0) >= 1,
+          "int8 path: K3 never launched")
+    check(launches.get("conv3x3_relu_pool", 0) == 0
+          and launches.get("dec1_head", 0) == 0,
+          f"int8 path launched K1/K2: {launches}")
+    check(sidecar.exists(), "int8: no calibration sidecar written")
+    n_drop = check_artifacts(img_dir, work / "int8_a", need_droplets=False)
+    first_ms = list(pipe.engine.megastep_ms)
+    pipe2 = run_cli(img_dir, ckpt, work / "int8_b", int8=True)
+    eng = pipe2.engine
+    check(np.array_equal(eng.calib_maxima, pipe.engine.calib_maxima),
+          "int8: the sidecar did not pin the scales")
+    rerun_mis, rerun_csv = compare_runs(img_dir, work / "int8_a",
+                                        work / "int8_b")
+    check(rerun_mis == 0 and rerun_csv == 0,
+          f"int8 rerun from the sidecar differs: {rerun_mis}, {rerun_csv}")
+    f32_mis, f32_csv = compare_runs(img_dir, work / "int8_a", work / "k32")
+
+    imgs = sorted(Path(img_dir).glob("*.png"))
+    rgb = np.stack([decode_rgb(p) for p in imgs[:BATCH]])
+    # card vs CPU from the same int8 params, 2 images at 128x128
+    qp = qi.build_int8_params(eng._folded, eng.calib_maxima)
+    size = eng.img_size
+    with torch.no_grad():
+        eng.img_size = 128
+        x128 = eng._preprocess(torch.from_numpy(rgb[:2]).cuda(), 50, True)
+        eng.img_size = size
+        pg = qi.forward_int8(qi.prepare_int8_params(qp, "cuda"), x128).cpu()
+        pc = qi.forward_int8(qi.prepare_int8_params(qp, "cpu"), x128.cpu())
+    card_cpu = float((pg - pc).abs().max())
+    card_cpu_mask_eq = bool(torch.equal(pg > 0.3, pc > 0.3))
+    check(card_cpu <= 1e-6 and card_cpu_mask_eq,
+          f"int8 card vs CPU: |dprob| {card_cpu}, masks {card_cpu_mask_eq}")
+
+    # forward time per batch of 8 at 512x512, int8 vs the bf16 kernels
+    with torch.no_grad():
+        x = eng._preprocess(torch.from_numpy(grayscale_view(rgb)).cuda(),
+                            50, True)
+        int8_ms = cuda_ms(lambda: eng.forward_probs(x), reps=10)
+        bf16_ms = cuda_ms(lambda: bf16_engine.forward_probs(x), reps=10)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng.forward_probs(x)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        prof = profile_step(lambda: eng.forward_probs(x), int8_ms,
+                            classes=INT8_CLASSES)
+    ops = BATCH * unet_forward_flops(512, 512)
+    return {"phase": "int8", "seconds": time.perf_counter() - t0,
+            "images": 16, "droplets": n_drop, "launches": launches,
+            "megastep_ms_first_run": first_ms,
+            "megastep_ms": eng.megastep_ms,
+            "sidecar": sidecar.name, "rerun_mask_mismatch": rerun_mis,
+            "rerun_csv_differ": rerun_csv,
+            "vs_f32_kernels": {"mask_agreement": 1.0 - f32_mis,
+                               "csv_differ": f32_csv},
+            "card_vs_cpu_128": {"max_abs_dprob": card_cpu,
+                                "mask_equal": card_cpu_mask_eq},
+            "forward_ms_b8_512": int8_ms, "bf16_kernel_forward_ms": bf16_ms,
+            "x_bf16": int8_ms / bf16_ms, "peak_gb": peak,
+            "bound_ms": ops / PEAK_OPS["int8"] * 1e3, "bound_by": "operations",
+            "int8_tera_ops": ops / 1e12, "device_profile": prof}
+
+
+# ------------------------------------------------------------- heatmaps --
+def heatmaps_phase(img_dir: Path, ckpt: Path, cb):
+    """Both heatmap engines over the 16 images, and each engine's stage on
+    the card and on the CPU from the card's masks (see the docstring)."""
+    import numpy as np
+    import torch
+
+    from unetdc_tpu_torch.io.images import decode_rgb
+    from unetdc_tpu_torch.ops.connected_components import remove_small_batch
+    from unetdc_tpu_torch.ops.contours import contour_scan
+    from unetdc_tpu_torch.ops.roi import gray_of, generate_roi_mask_gray
+    from unetdc_tpu_torch.ops.threshold import otsu_threshold
+    from unetdc_tpu_torch.ops.filters import gaussian_blur
+    from unetdc_tpu_torch.pipelines.engine import (QuantifyEngine,
+                                                   grayscale_view,
+                                                   load_state_dict)
+    from unetdc_tpu_torch.pipelines.heatmaps import (BlobInspectorEngine,
+                                                     HeatmapV1Engine)
+
+    t0 = time.perf_counter()
+    imgs = sorted(Path(img_dir).glob("*.png"))
+    groups = [grayscale_view(np.stack([decode_rgb(p) for p in g]))
+              for g in (imgs[:BATCH], imgs[BATCH:2 * BATCH])]
+    out = {"phase": "heatmaps", "images": 16}
+    for name, cls, kw in (
+            ("heatmap_v1", HeatmapV1Engine, {}),
+            ("blobinspector", BlobInspectorEngine,
+             dict(kernel_size=55, nb_layers=3, contour_thresh=0,
+                  contour_min_size=20))):
+        eng = cls(load_state_dict(str(ckpt)), device="cuda", **kw)
+        for b in groups:  # warm-up
+            eng.run_batch(b, b.shape[1:3])
+        eng.megastep_ms.clear()
+        torch.cuda.synchronize()
+        cb.reset_launches()
+        res = [eng.run_batch(b, b.shape[1:3]) for b in groups]
+        torch.cuda.synchronize()
+        launches = dict(cb.LAUNCHES)
+        for k in ("conv3x3_relu_pool", "dec1_head", "component_tables"):
+            check(launches.get(k, 0) >= 1, f"{name}: {k} never launched")
+        r = {"launches": launches, "megastep_ms": list(eng.megastep_ms),
+             "droplets": int(sum(int(x["count"].sum()) for x in res)),
+             "stage": []}
+        for b in groups:
+            x = torch.from_numpy(b).cuda()
+            cap = eng.max_labels
+            with torch.no_grad():
+                base = QuantifyEngine._megastep(eng, x, 0.3, 1, b.shape[1:3],
+                                                50, True, cap)
+                gpu = eng.heatmap_stage(x, base["mask"], base, cap)
+                stage_ms = cuda_ms(lambda: eng.heatmap_stage(
+                    x, base["mask"], base, cap), reps=3, warmup=1)
+                cpu = eng.heatmap_stage(
+                    x.cpu(), base["mask"].cpu(),
+                    {k: v.cpu() for k, v in base.items()}, cap)
+                gray = gray_of(x)
+                extra_g, extra_c = {}, {}
+                if cls is HeatmapV1Engine:
+                    for dst, g in ((extra_g, gray), (extra_c, gray.cpu())):
+                        bl = torch.clamp(torch.round(gaussian_blur(g)), 0,
+                                         255).to(torch.uint8)
+                        dst["otsu"] = otsu_threshold(bl)
+                        dst["roi"] = generate_roi_mask_gray(g)
+                else:
+                    for dst, g in ((extra_g, gray), (extra_c, gray.cpu())):
+                        dst["remove_small_batch"] = remove_small_batch(
+                            contour_scan(g, eng.contour_thresh),
+                            eng.contour_min_size, cap, connectivity=2)
+            gpu.update(extra_g)
+            cpu.update(extra_c)
+            row = {"shape": list(b.shape), "stage_ms": stage_ms}
+            for k in gpu:
+                a, c = gpu[k].cpu(), cpu[k]
+                if k == "spatial_u8":
+                    d = int((a.int() - c.int()).abs().max())
+                    row["spatial_u8_max_level_diff"] = d
+                    check(d <= 1, f"{name}: spatial_u8 card vs CPU {d}")
+                else:
+                    row[f"{k}_equal"] = bool(torch.equal(a, c))
+                    check(row[f"{k}_equal"], f"{name}: {k} card != CPU")
+            if "otsu" in gpu:
+                row["otsu_thresholds"] = gpu["otsu"].tolist()
+            r["stage"].append(row)
+        out[name] = r
+        del eng
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1033,7 +1234,6 @@ def main() -> int:
         emit({"phase": "k3_overflow", "cases": k3_overflow_cases()})
         emit({"phase": "stages",
               "ms": stage_times(pipe.engine, img_dir)})
-        emit({"kernels": rows})
         # every kernel must beat its library yardstick
         for r in rows:
             check(r["ms"] < r["library_ms"],
@@ -1064,9 +1264,26 @@ def main() -> int:
         # the whole network; a sanity bound only (see PERF.md)
         check(bf_mis < 5e-2 and x_mis < 5e-2, "bf16 path mask mismatch")
 
-        emit(train_phase(work, cb))
+        train = train_phase(work, cb)
+        emit(train)
         emit(train_step_timing(work))
         emit(card_vs_cpu_step(work))
+        int8 = int8_phase(work, img_dir, ckpt, cb, pipe.engine)
+        emit(int8)
+        heat = heatmaps_phase(img_dir, ckpt, cb)
+        emit(heat)
+        paths = {"cli": launches,
+                 "train_quantify": train["quantified_trained_msgpack"][
+                     "launches"],
+                 "int8_cli": int8["launches"],
+                 "heatmap_v1": heat["heatmap_v1"]["launches"],
+                 "blobinspector": heat["blobinspector"]["launches"]}
+        keys = {"K1": "conv3x3_relu_pool", "K2": "dec1_head",
+                "K3": "component_tables"}
+        for r in rows:
+            k = keys[r["name"][:2]]
+            r["launches_by_path"] = {p: n.get(k, 0) for p, n in paths.items()}
+        emit({"kernels": rows})
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -30,11 +30,13 @@ bad = sorted(m for m in sys.modules
                                     "unetdc_tpu", "sklearn", "msgpack"))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 30, names
+assert len(names) >= 37, names
 for n in ("losses", "data.augment", "data.dataset", "train.trainer",
           "train.test_phase", "utils.summary", "cli.train",
           "cli.train_dc_focal", "checkpoint.native", "ops.diffmap",
-          "ops.filters"):
+          "ops.filters", "models.unet_int8", "ops.threshold", "ops.roi",
+          "ops.density", "ops.contours", "pipelines.heatmaps",
+          "cli.quantify_pipline", "cli.quantify"):
     assert "unetdc_tpu_torch." + n in names, n
 """
     r = subprocess.run([sys.executable, "-c", code.format(
@@ -131,6 +133,35 @@ def test_train_entry_points_default_to_cuda(monkeypatch, tmp_path, which):
     with pytest.raises(SystemExit, match="item 10"):
         cli.main(["--image_dir", "img", "--mask_dir", "msk",
                   "--data_parallel", "2"])
+
+
+@pytest.mark.parametrize("cli", ["quantify_pipline", "quantify"])
+def test_heatmap_clis_default_to_cuda(monkeypatch, tmp_path, cli):
+    """Both heatmap CLIs run on the card unless asked, raise (no CPU
+    fallback) when there is none, and refuse --data_parallel naming
+    ROADMAP item 10."""
+    import importlib
+
+    from PIL import Image
+    import numpy as np
+
+    from tests.torch_reference import make_decisive_checkpoint
+
+    mod = importlib.import_module(f"unetdc_tpu_torch.cli.{cli}")
+    base = ["--img_dir", str(tmp_path / "img"), "--px_per_micron", "2"]
+    assert mod.build_parser().parse_args(base).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "img").mkdir()
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(
+        tmp_path / "img" / "a.png")
+    ckpt = tmp_path / "m.pth"
+    make_decisive_checkpoint(str(ckpt), seed=1, img_size=32)
+    argv = base + ["--ckpt_path", str(ckpt), "--out_dir",
+                   str(tmp_path / "out")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(argv)
+    with pytest.raises(SystemExit, match="item 10"):
+        mod.main(argv + ["--data_parallel", "2"])
 
 
 def test_kernel_wrappers_take_plain_version_only_on_cpu(monkeypatch):

@@ -7,7 +7,7 @@ tree), running the PyTorch/CUDA port.
         --batch 8 --prob_thresh 0.3 --min_area 1 [--px_per_micron F]
         [--save_overlays] [--background_radius 50] [--skip_excel]
         [--skip_histogram] [--precision {bf16,f32}] [--max_labels N]
-        [--device {cuda,cpu}]
+        [--int8 [--int8_calib {auto,none,PATH}]] [--device {cuda,cpu}]
 
 Runs on the GPU unless `--device cpu` is given; without a GPU it fails
 rather than fall back to the CPU.
@@ -40,19 +40,42 @@ def build_parser() -> argparse.ArgumentParser:
                    help="model compute precision")
     p.add_argument("--max_labels", type=int, default=4096,
                    help="per-image component capacity of the droplet tables")
+    p.add_argument("--int8", action="store_true",
+                   help="post-training-quantized int8 forward (per-tensor "
+                        "activation scales; masks may differ marginally "
+                        "from --precision f32). Scales load from the "
+                        "--int8_calib sidecar when it exists; otherwise "
+                        "they are calibrated on the first images in sorted "
+                        "filename order and saved there")
+    p.add_argument("--int8_calib", default="auto", metavar="PATH",
+                   help="int8 calibration sidecar (.npz). 'auto' (default) "
+                        "= <ckpt_path>.int8calib.npz; 'none' = recalibrate "
+                        "every run, save nothing")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where to run (default: the GPU)")
     return p
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.int8 and args.precision == "f32":
+        # f32 is the parity path; quietly replacing it by the quantized
+        # forward would hand back masks that are not the parity ones
+        parser.error("--int8 contradicts --precision f32 (the parity path); "
+                     "drop one of the two flags")
 
     from unetdc_tpu_torch.pipelines.engine import load_engine
     from unetdc_tpu_torch.pipelines.quantify_batch import BatchQuantifyPipeline
 
+    calib_path = None
+    if args.int8 and args.int8_calib != "none":
+        calib_path = (args.ckpt_path + ".int8calib.npz"
+                      if args.int8_calib == "auto" else args.int8_calib)
     engine = load_engine(args.ckpt_path, fast=(args.precision == "bf16"),
-                         max_labels=args.max_labels, device=args.device)
+                         max_labels=args.max_labels, device=args.device,
+                         quantize="int8" if args.int8 else None,
+                         calib_path=calib_path)
     pipe = BatchQuantifyPipeline(
         engine, args.out_dir, batch=args.batch, prob_thresh=args.prob_thresh,
         min_area=args.min_area, px_per_micron=args.px_per_micron,

@@ -1,7 +1,8 @@
 """Connected-component quantification of batched binary masks.
 
-Port of the pieces of the JAX package's `ops/connected_components.py` that
-`quantify_mask_batch` uses (reference quantify_droplets_batch.py: label ->
+Port of the JAX package's `ops/connected_components.py`: `label_batch`,
+`quantify_mask_batch` (with its pre-sieve table), `remove_small_batch` and
+`component_areas` (reference quantify_droplets_batch.py: label ->
 drop components smaller than min_area -> relabel -> area/centroid table in
 raster order).
 
@@ -188,7 +189,8 @@ def _chunks_to_total(chunks: torch.Tensor, shifts: Sequence[int]
 
 
 def _assemble_quantify(csums: torch.Tensor, n_total: torch.Tensor, hw,
-                       min_area, max_labels: int, shifts, bits
+                       min_area, max_labels: int, shifts, bits,
+                       want_presieve: bool = False
                        ) -> Dict[str, torch.Tensor]:
     """Sieve + relabel + output assembly from per-label sums, batched.
 
@@ -196,7 +198,11 @@ def _assemble_quantify(csums: torch.Tensor, n_total: torch.Tensor, hw,
     raster-rank order, or (B, cap, 3) [area, sum0, sum1] when `shifts` is
     None. Output keys: 'count', 'total', 'area' and per-axis 'sum-N-lo'
     (bare total), 'sum-N-lo'/'sum-N-hi' (base 256) or
-    'sum-N-lo16'/'sum-N-hi16' (base 65536)."""
+    'sum-N-lo16'/'sum-N-hi16' (base 65536). With `want_presieve`, also the
+    table before the sieve, in raster order: 'all_area', 'all_sum-0',
+    'all_sum-1' (float32 totals, hi * 2^obits + lo when split: rounded
+    above 2^24, as the JAX package's are) and 'all_count'
+    (min(total, max_labels))."""
     h, w = hw
     cap = max_labels + 1
     dev = csums.device
@@ -205,6 +211,8 @@ def _assemble_quantify(csums: torch.Tensor, n_total: torch.Tensor, hw,
     area = torch.where(slot_valid, csums[..., 0], 0)
     if shifts is None:
         payload = csums
+        pre = [csums[..., 1].to(torch.float32),
+               csums[..., 2].to(torch.float32)]
     else:
         k = len(shifts)
         obits = _out_base_bits(h, w)
@@ -212,6 +220,8 @@ def _assemble_quantify(csums: torch.Tensor, n_total: torch.Tensor, hw,
         lo1, hi1 = _chunks_to_lo_hi(csums[..., 1 + k:1 + 2 * k], shifts,
                                     obits)
         payload = torch.stack([csums[..., 0], lo0, hi0, lo1, hi1], -1)
+        pre = [hi.to(torch.float32) * float(2 ** obits) + lo
+               for lo, hi in ((lo0, hi0), (lo1, hi1))]
     keep = slot_valid & (area >= min_area)
     new_label = torch.cumsum(keep.to(torch.int32), 1,
                              dtype=torch.int32) * keep
@@ -229,11 +239,18 @@ def _assemble_quantify(csums: torch.Tensor, n_total: torch.Tensor, hw,
         result[f"sum-0-hi{suffix}"] = out[:, 1:, 2]
         result[f"sum-1-lo{suffix}"] = out[:, 1:, 3]
         result[f"sum-1-hi{suffix}"] = out[:, 1:, 4]
+    if want_presieve:
+        result["all_area"] = area[:, 1:]
+        for axis in (0, 1):
+            result[f"all_sum-{axis}"] = torch.where(slot_valid, pre[axis],
+                                                    0.0)[:, 1:]
+        result["all_count"] = n_total.clamp_max(max_labels)
     return result
 
 
 def _quantify_from_table(table: torch.Tensor, n_total: torch.Tensor, hw,
-                         min_area, max_labels: int):
+                         min_area, max_labels: int,
+                         want_presieve: bool = False):
     """Output dict from the K3 table (chunked per `_coord_plan(h, w,
     force_split=True)`), recombined to bare totals when they fit int32."""
     h, w = hw
@@ -247,9 +264,9 @@ def _quantify_from_table(table: torch.Tensor, n_total: torch.Tensor, hw,
                              _chunks_to_total(t[..., 1 + k:1 + 2 * k],
                                               kshifts)], -1)
         return _assemble_quantify(csums, n_total, hw, min_area, max_labels,
-                                  None, None)
+                                  None, None, want_presieve)
     return _assemble_quantify(t, n_total, hw, min_area, max_labels, kshifts,
-                              kbits)
+                              kbits, want_presieve)
 
 
 def label_batch(masks: torch.Tensor, connectivity: int = 1
@@ -271,7 +288,8 @@ def label_batch(masks: torch.Tensor, connectivity: int = 1
 
 def quantify_mask_batch(masks: torch.Tensor, min_area, max_labels: int,
                         connectivity: int = 1,
-                        tables: Optional[Callable] = None
+                        tables: Optional[Callable] = None,
+                        want_presieve: bool = False
                         ) -> Dict[str, torch.Tensor]:
     """Per-image droplet tables of (B, H, W) 0/1 masks: label, drop
     components with area < min_area, relabel in raster order, and return
@@ -281,11 +299,54 @@ def quantify_mask_batch(masks: torch.Tensor, min_area, max_labels: int,
     are dropped; callers compare 'total' with max_labels.
 
     `tables` defaults to kernel K3; its plain version gives the reference
-    path."""
+    path. `want_presieve` adds the table before the sieve (the heatmaps'
+    unsieved centroids) at no second propagation."""
     tables = component_tables if tables is None else tables
     b, h, w = masks.shape
     labels, n_total = label_batch(masks, connectivity)
     kshifts, kbits = _coord_plan(h, w, force_split=True)
     table = tables(labels.contiguous(), kshifts, kbits,
                    cap=max(CAP, max_labels + 1))
-    return _quantify_from_table(table, n_total, (h, w), min_area, max_labels)
+    return _quantify_from_table(table, n_total, (h, w), min_area, max_labels,
+                                want_presieve)
+
+
+def component_areas(labels: torch.Tensor, num_segments: int
+                    ) -> torch.Tensor:
+    """(B, num_segments) int64 pixel count of each label of (B, H, W)
+    labels (0 = background); labels outside [0, num_segments) are dropped,
+    as by a fixed-size segment sum."""
+    flat = labels.flatten(1).long()
+    ok = (flat >= 0) & (flat < num_segments)
+    out = torch.zeros(flat.shape[0], num_segments + 1, dtype=torch.int64,
+                      device=labels.device)
+    out.scatter_add_(1, torch.where(ok, flat, num_segments), ok.long())
+    return out[:, :num_segments]
+
+
+def remove_small_batch_counted(masks: torch.Tensor, min_size,
+                               max_labels: int, connectivity: int = 2
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Drop the components of (B, H, W) masks smaller than min_size ->
+    (bool masks, exact per-image component count (B,) int32).
+
+    As the JAX package's version does, a component ranked beyond
+    max_labels in raster order (its area is outside the JAX package's
+    fixed table) is kept unexamined, so none disappears silently; the
+    exact count lets callers detect that and re-run at a larger cap."""
+    b, h, w = masks.shape
+    labels, n_total = label_batch(masks, connectivity)
+    areas = component_areas(labels, h * w + 1)
+    ids = torch.arange(h * w + 1, device=masks.device)
+    keep = (ids > max_labels) | (areas >= min_size)
+    keep[:, 0] = False
+    kept = torch.gather(keep, 1, labels.flatten(1).long()).reshape(b, h, w)
+    return kept, n_total
+
+
+def remove_small_batch(masks: torch.Tensor, min_size, max_labels: int,
+                       connectivity: int = 2) -> torch.Tensor:
+    """`remove_small_batch_counted` without the count (algorithms.py
+    remove_objects, batched)."""
+    return remove_small_batch_counted(masks, min_size, max_labels,
+                                      connectivity)[0]

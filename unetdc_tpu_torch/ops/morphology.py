@@ -115,3 +115,13 @@ def dilate(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
 def morph_open(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
     """Opening = erode then dilate (cv2.MORPH_OPEN)."""
     return dilate(erode(img, kernel), kernel)
+
+
+def morph_close(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+    """Closing = dilate then erode (cv2.MORPH_CLOSE)."""
+    return erode(dilate(img, kernel), kernel)
+
+
+def binary_dilation3x3(mask: torch.Tensor) -> torch.Tensor:
+    """scipy.ndimage.binary_dilation with a 3x3 square -> bool."""
+    return dilate(mask.to(torch.float32), np.ones((3, 3), np.uint8)) > 0.5

@@ -11,6 +11,10 @@ out. The JAX engine packs every output into one bit-packed buffer to save
 transfer calls on its TPU link; that is not needed here, so outputs travel
 as they are.
 
+`quantize="int8"` runs the post-training-quantized forward instead
+(`models/unet_int8.py`, no K1/K2), calibrated from a sidecar, an explicit
+`calibrate_int8` call or, failing both, the first batch.
+
 The engine's `megastep_ms` records the card's time for each batch, from
 CUDA events around the megastep (it includes the per-sweep host syncs of
 the component propagation).
@@ -18,6 +22,7 @@ the component propagation).
 
 from __future__ import annotations
 
+import os
 import sys
 from typing import Dict, List, Tuple
 
@@ -26,6 +31,7 @@ import torch
 
 from unetdc_tpu_torch.device import resolve_device
 from unetdc_tpu_torch.models.unet import UNetDC, fold_batchnorm
+from unetdc_tpu_torch.models import unet_int8 as qi
 from unetdc_tpu_torch.models.unet_fast import build_fast_params, forward_folded
 from unetdc_tpu_torch.ops import fused_conv
 from unetdc_tpu_torch.ops.component_tables import (component_tables,
@@ -62,19 +68,44 @@ class QuantifyEngine:
       device: "cuda" (default) or "cpu"; CUDA must be present if asked for.
       kernels: True runs the fused kernels K1, K2, K3; False runs their
         plain PyTorch versions (the reference path for checking them).
+      quantize: None, or "int8" for the quantized forward; its activation
+        scales come from `calib_path` when that file exists, from
+        `calibrate_int8`, or from the first batch the engine sees, and
+        are saved to `calib_path` (when set) whenever they are calibrated.
     """
+
+    # subclasses set this to receive the pre-sieve component table
+    _want_presieve = False
 
     def __init__(self, state_dict, model_cls=UNetDC, img_size: int = 512,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  max_labels: int = 4096, device="cuda",
-                 kernels: bool = True):
+                 kernels: bool = True, quantize: str | None = None,
+                 calib_path=None):
         self.device = resolve_device(device)
         self.img_size = img_size
         self.max_labels = max_labels
         self.compute_dtype = compute_dtype
         self._dilations = tuple(model_cls.dilations)
-        self.params = build_fast_params(fold_batchnorm(state_dict),
-                                        compute_dtype, self.device)
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
+        if quantize == "int8" and (self._dilations[0] != 1 or img_size % 2):
+            raise ValueError("int8 path requires an undilated enc1 and an "
+                             "even img_size")
+        self.quantize = quantize
+        self.calib_path = calib_path
+        self.calib_maxima = None  # (len(TAGS),) f32 once calibrated
+        folded = fold_batchnorm(state_dict)
+        if quantize == "int8":
+            # params appear at calibration; the folded f32 weights stay on
+            # the host for the calibration forward and the quantizer
+            self._folded = folded
+            self.params = None
+            if calib_path is not None and os.path.exists(calib_path):
+                self._finalize_int8(qi.load_calibration(calib_path))
+        else:
+            self.params = build_fast_params(folded, compute_dtype,
+                                            self.device)
         if kernels:
             self._conv_pool = fused_conv.conv3x3_relu_pool
             self._head = fused_conv.dec1_head
@@ -88,8 +119,49 @@ class QuantifyEngine:
     # ------------------------------------------------------------------
     def forward_probs(self, x: torch.Tensor) -> torch.Tensor:
         """(B, S, S, 3) float in [0, 1] -> (B, S, S, 1) f32 probabilities."""
-        return forward_folded(self.params, x.to(self.device), self._dilations,
+        x = x.to(self.device)
+        if self.quantize == "int8":
+            if self.params is None:
+                self.calibrate_int8(x, preprocessed=True)
+            return qi.forward_int8(self.params, x, self._dilations)
+        return forward_folded(self.params, x, self._dilations,
                               self._conv_pool, self._head)
+
+    # ------------------------------------------------------------------
+    def _finalize_int8(self, maxima: np.ndarray) -> None:
+        """Quantize on the host from per-tag maxima and move the int8
+        params to the device; records `calib_maxima`."""
+        maxima = np.asarray(maxima, np.float32)
+        qp = qi.build_int8_params(self._folded, maxima, self._dilations)
+        self.params = qi.prepare_int8_params(qp, self.device)
+        self.calib_maxima = maxima
+
+    def calibrate_int8(self, batches, *, preprocessed: bool = False,
+                       background_radius: int = 50, apply_bg: bool = True,
+                       save: bool = True) -> None:
+        """Calibrate the int8 activation scales from one or more batches:
+        (B,H,W,3) or grayscale (B,H,W) uint8 images, or preprocessed
+        (B,S,S,3) f32 with `preprocessed=True` (arrays or tensors), or a
+        list of them. The per-tag maxima of the plain f32 forward take the
+        elementwise max over the batches; with `save` they go to
+        `calib_path` when it is set."""
+        if self.quantize != "int8":
+            raise ValueError("calibrate_int8 requires quantize='int8'")
+        fp = build_fast_params(self._folded, torch.float32, self.device)
+        if hasattr(batches, "shape"):
+            batches = [batches]
+        mx = None
+        for a in batches:
+            t = torch.as_tensor(a).to(self.device)
+            x = t if preprocessed else self._preprocess(
+                t, int(background_radius), bool(apply_bg))
+            m = qi.forward_calib(fp, x, self._dilations)[1].cpu().numpy()
+            mx = m if mx is None else np.maximum(mx, m)
+        if mx is None:
+            raise ValueError("calibrate_int8 needs at least one batch")
+        self._finalize_int8(mx)
+        if save and self.calib_path is not None:
+            qi.save_calibration(self.calib_path, mx)
 
     def _preprocess(self, imgs_u8: torch.Tensor, background_radius: int,
                     apply_bg: bool) -> torch.Tensor:
@@ -116,7 +188,8 @@ class QuantifyEngine:
         mask = (probs[..., 0] > prob_thresh).to(torch.uint8)
         masks = resize_linear_u8_cv2exact(mask, tuple(out_hw))
         stats = quantify_mask_batch(masks, min_area, max_labels,
-                                    connectivity=1, tables=self._tables)
+                                    connectivity=1, tables=self._tables,
+                                    want_presieve=self._want_presieve)
         return {"mask": masks, **stats}
 
     # ------------------------------------------------------------------
@@ -127,6 +200,11 @@ class QuantifyEngine:
         returns a handle for `fetch_batch` (device results + what an
         overflow re-run needs)."""
         x = torch.from_numpy(np.ascontiguousarray(imgs_u8)).to(self.device)
+        if self.quantize == "int8" and self.params is None:
+            # fallback: calibrate on the first batch (order-dependent; the
+            # pipeline calibrates on a canonical sorted subset instead)
+            self.calibrate_int8(x, background_radius=background_radius,
+                                apply_bg=apply_bg)
         ctx = (x, float(prob_thresh), int(min_area), int(background_radius),
                bool(apply_bg))
         return self._run(ctx, tuple(out_hw), self.max_labels), ctx
@@ -190,22 +268,29 @@ class QuantifyEngine:
                                 background_radius, apply_bg), out_hw)
 
 
-def load_engine(ckpt_path: str, fast: bool = True, model_cls=UNetDC,
-                max_labels: int = 4096, device="cuda",
-                kernels: bool = True) -> QuantifyEngine:
-    """Engine from a reference `.pth` checkpoint or a native msgpack
+def load_state_dict(ckpt_path: str):
+    """State dict of a reference `.pth` checkpoint or of a native msgpack
     {'params', 'batch_stats'} checkpoint (either package's trainer writes
-    one), as the JAX engine's `load_engine`. `fast` selects bf16 (default)
-    over f32."""
+    one)."""
     from unetdc_tpu_torch.checkpoint.convert import (load_pth_state_dict,
                                                      variables_to_state_dict)
     from unetdc_tpu_torch.checkpoint.native import load_checkpoint
 
     if str(ckpt_path).endswith(".pth"):
-        state_dict = load_pth_state_dict(ckpt_path)
-    else:
-        state_dict = variables_to_state_dict(load_checkpoint(str(ckpt_path)))
-    return QuantifyEngine(state_dict, model_cls=model_cls,
+        return load_pth_state_dict(ckpt_path)
+    return variables_to_state_dict(load_checkpoint(str(ckpt_path)))
+
+
+def load_engine(ckpt_path: str, fast: bool = True, model_cls=UNetDC,
+                max_labels: int = 4096, device="cuda",
+                kernels: bool = True, quantize: str | None = None,
+                calib_path=None) -> QuantifyEngine:
+    """Engine from a checkpoint (`load_state_dict`), as the JAX engine's
+    `load_engine`. `fast` selects bf16 (default) over f32; `quantize="int8"`
+    the calibrated int8 forward with its scales loaded from / saved to the
+    `calib_path` sidecar."""
+    return QuantifyEngine(load_state_dict(ckpt_path), model_cls=model_cls,
                           compute_dtype=torch.bfloat16 if fast
                           else torch.float32, max_labels=max_labels,
-                          device=device, kernels=kernels)
+                          device=device, kernels=kernels, quantize=quantize,
+                          calib_path=calib_path)

@@ -188,10 +188,34 @@ class BatchQuantifyPipeline:
                     draw_overlay(rgbs[i], mask))
 
     # --------------------------------------------------------------
+    def _maybe_calibrate(self, paths: List[Path]):
+        """Int8 engines calibrate on a canonical subset: the first `batch`
+        images in sorted filename order that share the first image's size,
+        not on whichever batch is dispatched first, so the activation
+        scales (and every mask) do not depend on traversal order. No-op
+        when a sidecar pinned the scales at engine construction."""
+        eng = self.engine
+        if getattr(eng, "quantize", None) != "int8" or eng.params is not None:
+            return
+        imgs, size = [], None
+        for p in paths:
+            arr = decode_rgb(p)
+            if size is None:
+                size = arr.shape[:2]
+            if arr.shape[:2] != size:
+                continue
+            imgs.append(arr)
+            if len(imgs) == self.batch:
+                break
+        if imgs:
+            eng.calibrate_int8(np.stack(imgs),
+                               background_radius=self.background_radius)
+
     def run(self, img_dir: str, progress: bool = True):
         from unetdc_tpu_torch.data.prefetch import Prefetcher
 
         images = list_images(img_dir)
+        self._maybe_calibrate(images)
         if progress:
             try:
                 from tqdm import tqdm
