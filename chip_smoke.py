@@ -12,6 +12,10 @@ Phases, each printing one JSON line:
                up and once counted: every kernel launch counter is zeroed
                just before and read just after; the artifact tree and the
                droplet tables are checked (scipy labels the written masks);
+               the counted run's stage timers (host_decode, h2d_upload,
+               device_fetch, host_write_artifacts, host_csv: `host_split_s`)
+               and a third run with --profile (its stage report and the
+               torch.profiler trace's size: `profile`);
   4. kernels — K1, K2, K3 at the shapes the CLI run gave them (K3 at both
                image sizes): agreement with their plain PyTorch versions,
                event time around one call (`ms`), device time from
@@ -28,6 +32,23 @@ Phases, each printing one JSON line:
                must sit within 1e-3 of the threshold, and at most 1e-5 of
                the mask pixels may differ; the bf16 kernel path's distance
                from the plain bf16 and plain f32 paths is reported.
+  5b. sharded — multi-device inference on meshes built over the one card
+               repeated (one card shows the arithmetic of the sharded
+               path, not peer copies or overlap between cards): K1 and K2
+               in `ext` mode on 2 and 4 row shards of the main path's
+               inputs (halos from the neighbours, zeros at the edges),
+               reassembled `torch.equal` to the unsharded kernels in bf16
+               and f32 and held to their plain `ext` versions;
+               forward_folded_spmd on meshes (2,1), (1,2), (1,4), (2,2):
+               f32 masks and probabilities equal to the unsharded kernel
+               forward's, bf16 distance reported (cuDNN's bf16 convs pick
+               shape-dependent algorithms), K1/K2 launches per mesh;
+               BatchQuantifyPipeline over the 16 images with an f32 engine
+               on mesh (2,1), and on mesh (2,2) with shard_space (the
+               counted sharded path: K1_ext, K2_ext, K3 launched): masks
+               and CSVs byte-equal to the f32 single-device CLI run; the
+               bf16 engine on (2,1) reported against the `cli` run; the CLI
+               with --data_parallel 1 byte-equal to the `cli` run.
   6. train   — the training path: 16 seeded 512x512 image/mask pairs
                (split 9/3/4, so the last training batch holds 1 image); two
                epochs of the full-width UNetDC through the port's
@@ -149,14 +170,15 @@ def make_images(d: Path, seed: int = 7):
 
 
 # ------------------------------------------------------------------ cli --
-def run_cli(img_dir, ckpt, out_dir, precision="bf16", int8=False):
+def run_cli(img_dir, ckpt, out_dir, precision="bf16", int8=False,
+            extra=()):
     from unetdc_tpu_torch.cli.quantify_droplets_batch import main
 
     return main(["--img_dir", str(img_dir), "--ckpt_path", str(ckpt),
                  "--out_dir", str(out_dir), "--batch", str(BATCH),
                  "--precision", precision, "--device", "cuda",
                  "--save_overlays", "--px_per_micron", str(PX_PER_UM)]
-                + (["--int8"] if int8 else []))
+                + (["--int8"] if int8 else []) + list(extra))
 
 
 def check_artifacts(img_dir, out_dir, need_droplets: bool = True):
@@ -419,7 +441,295 @@ def kernel_rows(engine, img_dir, out_dir, launches):
             plain_ms=cuda_ms(lambda: component_tables_plain(
                 labels512, *plan512, cap=cap), reps=5),
             library_ms=cuda_ms(k3_library(labels512, cap)))))
+    return rows, seen
+
+
+def row_shards(t, S, n):
+    """t (B, H, ...) cut into S row shards, each with n halo rows from its
+    neighbours (zeros past the image): the `ext` kernels' inputs."""
+    import torch
+
+    from unetdc_tpu_torch.models.unet_fast import halo
+
+    return halo(list(torch.chunk(t, S, 1)), n, 1)
+
+
+def ext_kernel_rows(seen):
+    """K1 and K2 in `ext` mode on row shards of the main path's inputs:
+    2 and 4 shards reassembled `torch.equal` to the unsharded kernel in
+    bf16 and f32 (every edge-flag pattern: top, interior, bottom shards),
+    each held to its plain `ext` version, and the top shard of 2 timed
+    against its bound and the library call on the same slab."""
+    import torch
+    import torch.nn.functional as F
+
+    from unetdc_tpu_torch.ops import fused_conv as fc
+
+    rows = []
+    x1, w1, b1 = seen["k1"]
+    for xx, ww in ((x1, w1), (x1.float(), w1.float())):
+        y, p = fc.conv3x3_relu_pool(xx, ww, b1)
+        for S in (2, 4):
+            parts = [fc.conv3x3_relu_pool(sh, ww, b1, ext=True)
+                     for sh in row_shards(xx, S, 1)]
+            check(torch.equal(torch.cat([q[0] for q in parts], 1), y)
+                  and torch.equal(torch.cat([q[1] for q in parts], 1), p),
+                  f"K1 ext {xx.dtype} S={S}: shards != unsharded kernel")
+    s0 = row_shards(x1, 2, 1)[0]
+    y, p = fc.conv3x3_relu_pool(s0, w1, b1, ext=True)
+    yr, pr = fc.conv3x3_relu_pool_plain(s0, w1, b1, ext=True)
+    err = max(float((y.float() - yr.float()).abs().max()),
+              float((p.float() - pr.float()).abs().max()))
+    check(torch.allclose(y.float(), yr.float(), atol=1e-2, rtol=1e-2)
+          and torch.allclose(p.float(), pr.float(), atol=1e-2, rtol=1e-2),
+          f"K1 ext bf16 disagrees with its plain version (max err {err})")
+    s32 = row_shards(x1.float(), 2, 1)[0]
+    y32, p32 = fc.conv3x3_relu_pool(s32, w1.float(), b1, ext=True)
+    yr32, pr32 = fc.conv3x3_relu_pool_plain(s32, w1.float(), b1, ext=True)
+    err32 = float((y32 - yr32).abs().max())
+    check(torch.allclose(y32, yr32, atol=2e-5, rtol=1e-5)
+          and torch.allclose(p32, pr32, atol=2e-5, rtol=1e-5),
+          f"K1 ext f32 disagrees with its plain version (max err {err32})")
+    B, H, W, C = y.shape
+    sn = s0.permute(0, 3, 1, 2)
+    wn = w1.permute(3, 2, 0, 1).contiguous()
+    bn = b1.to(s0.dtype)
+    rows.append(dict(
+        name="K1_ext conv3x3_relu_pool(ext)", route="cuda",
+        source="unetdc_tpu_torch/csrc/fused_conv.cu",
+        replaces="unetdc_tpu/ops/pallas_conv.py:260",
+        max_abs_err=err, max_abs_err_f32=err32,
+        shards_bit_equal={"bf16": [2, 4], "f32": [2, 4]},
+        ms=cuda_ms(lambda: fc.conv3x3_relu_pool(s0, w1, b1, ext=True)),
+        device_ms=device_ms(lambda: fc.conv3x3_relu_pool(s0, w1, b1,
+                                                         ext=True)),
+        plain_ms=cuda_ms(lambda: fc.conv3x3_relu_pool_plain(
+            s0, w1, b1, ext=True), reps=5),
+        library_ms=cuda_ms(lambda: F.max_pool2d(torch.relu(F.conv2d(
+            sn, wn, bn, padding=(0, 1))), 2)),
+        **bound(nbytes(s0, y, p, w1, b1), 2 * B * H * W * C * 64 * 9,
+                "bf16"),
+        shapes=f"x {tuple(s0.shape)} bf16 (top shard of 2)"))
+
+    dec2, enc1, head = seen["k2"]
+    unscaled = dict(head, w_oc=head["w_oc"] / 300, b_oc=head["b_oc"] / 300)
+    h32 = {k: (v.float() if v.dtype == torch.bfloat16 else v)
+           for k, v in unscaled.items()}
+    for d, e, hd in ((dec2, enc1, head), (dec2.float(), enc1.float(), h32)):
+        o = fc.dec1_head(d, e, hd)
+        for S in (2, 4):
+            parts = [fc.dec1_head(a, b, hd, ext=True,
+                                  edge_flags=(i == 0, i == S - 1))
+                     for i, (a, b) in enumerate(zip(row_shards(d, S, 1),
+                                                    row_shards(e, S, 2)))]
+            check(torch.equal(torch.cat(parts, 1), o),
+                  f"K2 ext {e.dtype} S={S}: shards != unsharded kernel")
+    d0, e0 = row_shards(dec2, 2, 1)[0], row_shards(enc1, 2, 2)[0]
+    flags = (1, 0)
+    o = fc.dec1_head(d0, e0, head, ext=True, edge_flags=flags)
+    orf = fc.dec1_head_plain(d0, e0, head, ext=True, edge_flags=flags)
+    err = float((o - orf).abs().max())
+    flips = float(((o > 0.3) != (orf > 0.3)).float().mean())
+    check(flips < 1e-3, f"K2 ext bf16 0.3-mask mismatch {flips}")
+    err_unscaled = float((fc.dec1_head(d0, e0, unscaled, True, flags)
+                          - fc.dec1_head_plain(d0, e0, unscaled, True, flags)
+                          ).abs().max())
+    check(err_unscaled < 0.05, f"K2 ext bf16 |dprob| {err_unscaled}")
+    d32, e32 = d0.float(), e0.float()
+    o32 = fc.dec1_head(d32, e32, h32, True, flags)
+    or32 = fc.dec1_head_plain(d32, e32, h32, True, flags)
+    err32 = float((o32 - or32).abs().max())
+    check(torch.allclose(o32, or32, atol=3e-6, rtol=1e-5),
+          f"K2 ext f32 disagrees with its plain version (max err {err32})")
+    B, H, W, _ = o.shape
+    dt = enc1.dtype
+    w_up = head["w_up"].permute(2, 3, 0, 1).contiguous()
+    w0n = head["w0"].permute(3, 2, 0, 1).contiguous()
+    w1n = head["w1"].permute(3, 2, 0, 1).contiguous()
+    wocn = head["w_oc"].view(1, 64, 1, 1)
+    bias = {k: head[k].to(dt) for k in ("b_up", "b0", "b1", "b_oc")}
+    d2n, e1n = d0.permute(0, 3, 1, 2), e0.permute(0, 3, 1, 2)
+
+    def lib_k2():  # the library chain on the same slabs (no edge masks)
+        up = F.conv_transpose2d(d2n, w_up, bias["b_up"], stride=2)
+        hh = torch.relu(F.conv2d(torch.cat([up, e1n], 1), w0n, bias["b0"],
+                                 padding=(0, 1)))
+        d1 = torch.relu(F.conv2d(hh, w1n, bias["b1"], padding=(0, 1)))
+        return torch.sigmoid(F.conv2d(d1, wocn, bias["b_oc"]).float())
+
+    rows.append(dict(
+        name="K2_ext dec1_head(ext)", route="cuda",
+        source="unetdc_tpu_torch/csrc/fused_conv.cu",
+        replaces="unetdc_tpu/ops/pallas_conv.py:425",
+        max_abs_err=err, mask_mismatch=flips,
+        max_abs_err_unscaled_head=err_unscaled,
+        max_abs_err_f32_unscaled_head=err32,
+        shards_bit_equal={"bf16": [2, 4], "f32": [2, 4]},
+        ms=cuda_ms(lambda: fc.dec1_head(d0, e0, head, True, flags)),
+        device_ms=device_ms(lambda: fc.dec1_head(d0, e0, head, True, flags)),
+        plain_ms=cuda_ms(lambda: fc.dec1_head_plain(d0, e0, head, True,
+                                                    flags), reps=5),
+        library_ms=cuda_ms(lib_k2),
+        **bound(nbytes(d0, e0, o, *head.values()),
+                2 * B * H * W * (128 * 64 + 128 * 64 * 9 + 64 * 64 * 9 + 64),
+                "bf16"),
+        shapes=f"dec2 {tuple(d0.shape)} enc1 {tuple(e0.shape)} bf16 "
+               "(top shard of 2, flags (1, 0))"))
     return rows
+
+
+def batch_split_divergence(params, x, dilations):
+    """The first library call of the kernel forward whose output on the
+    whole batch differs from its outputs on the two halves (in call order):
+    where a batch split changes the arithmetic."""
+    import torch
+    import torch.nn.functional as F
+
+    from unetdc_tpu_torch.models.unet_fast import forward_folded
+
+    names = ("conv2d", "conv_transpose2d", "max_pool2d")
+
+    def record(xx):
+        seen, orig = [], {n: getattr(F, n) for n in names}
+
+        def wrap(n):
+            def f(*a, **k):
+                out = orig[n](*a, **k)
+                seen.append((n, tuple(a[0].shape), out))
+                return out
+            return f
+
+        try:
+            for n in names:
+                setattr(F, n, wrap(n))
+            forward_folded(params, xx, dilations)
+        finally:
+            for n in names:
+                setattr(F, n, orig[n])
+        return seen
+
+    half = x.shape[0] // 2
+    whole, a, b = record(x), record(x[:half]), record(x[half:])
+    for i, ((n, shape, o), (_, _, oa), (_, _, ob)) in enumerate(
+            zip(whole, a, b)):
+        if not torch.equal(o, torch.cat([oa, ob])):
+            return {"call": i, "of": len(whole), "op": n,
+                    "input_shape": list(shape),
+                    "max_abs_diff": float((o - torch.cat([oa, ob])).float()
+                                          .abs().max())}
+    return None
+
+
+def sharded_phase(work: Path, img_dir: Path, ckpt: Path, cb):
+    """Multi-device inference on meshes over the one card repeated (see
+    the docstring, phase 5b)."""
+    import numpy as np
+    import torch
+
+    from unetdc_tpu_torch.core.mesh import make_mesh
+    from unetdc_tpu_torch.io.images import decode_rgb
+    from unetdc_tpu_torch.models.unet_fast import (forward_folded,
+                                                   forward_folded_spmd)
+    from unetdc_tpu_torch.pipelines.engine import grayscale_view, load_engine
+    from unetdc_tpu_torch.pipelines.quantify_batch import BatchQuantifyPipeline
+
+    t0 = time.perf_counter()
+    card = torch.device("cuda", 0)
+
+    def mesh(nd, ns):
+        return make_mesh(nd, ns, devices=[card] * (nd * ns))
+
+    def pipeline(precision, m, shard_space, out):
+        eng = load_engine(str(ckpt), mesh=m, fast=(precision == "bf16"),
+                          shard_space=shard_space)
+        pipe = BatchQuantifyPipeline(eng, str(out), batch=BATCH,
+                                     px_per_micron=PX_PER_UM,
+                                     save_overlays=True)
+        pipe.run(str(img_dir), progress=False)
+        pipe.write_reports(skip_excel=True, skip_histogram=True)
+        return eng
+
+    r = {"phase": "sharded", "card_repeated": True, "failed": []}
+
+    def hold(cond, what):  # every comparison is reported before a failure
+        if not cond:
+            r["failed"].append(what)
+    # the counted sharded path: f32 engine, mesh (2,2), shard_space
+    pipeline("f32", mesh(2, 2), True, work / "sh_warm")
+    torch.cuda.synchronize()
+    cb.reset_launches()
+    eng = pipeline("f32", mesh(2, 2), True, work / "sh22")
+    torch.cuda.synchronize()
+    r["launches"] = dict(cb.LAUNCHES)
+    for k in ("conv3x3_relu_pool_ext", "dec1_head_ext", "component_tables"):
+        hold(r["launches"].get(k, 0) >= 1,
+             f"sharded path: {k} never launched")
+    mis, csv = compare_runs(img_dir, work / "sh22", work / "k32")
+    r["f32_mesh_2x2_shard_space_vs_f32_cli"] = {
+        "mask_mismatch": mis, "csv_differ": csv,
+        "megastep_ms": eng.megastep_ms}
+    hold(mis == 0 and csv == 0, f"f32 (2,2) shard_space pipeline vs the "
+         f"f32 CLI: masks {mis}, CSVs {csv}")
+    pipeline("f32", mesh(2, 1), False, work / "sh21")
+    mis, csv = compare_runs(img_dir, work / "sh21", work / "k32")
+    r["f32_mesh_2x1_vs_f32_cli"] = {"mask_mismatch": mis, "csv_differ": csv}
+    hold(mis == 0 and csv == 0, f"f32 (2,1) pipeline vs the f32 CLI: "
+         f"masks {mis}, CSVs {csv}")
+    eng = pipeline("bf16", mesh(2, 1), False, work / "shb21")
+    mis, csv = compare_runs(img_dir, work / "shb21", work / "out")
+    r["bf16_mesh_2x1_vs_cli"] = {"mask_mismatch": mis, "csv_differ": csv,
+                                 "megastep_ms": eng.megastep_ms}
+    hold(mis < 5e-2, f"bf16 (2,1) pipeline mask mismatch {mis}")
+    run_cli(img_dir, ckpt, work / "dp1", extra=["--data_parallel", "1"])
+    mis, csv = compare_runs(img_dir, work / "dp1", work / "out")
+    r["cli_data_parallel_1_vs_cli"] = {"mask_mismatch": mis,
+                                       "csv_differ": csv}
+    hold(mis == 0 and csv == 0, f"--data_parallel 1 vs the CLI: masks "
+         f"{mis}, CSVs {csv}")
+
+    # forward_folded_spmd against the unsharded kernel forward, on both
+    # size buckets' engine inputs (RGB 512x512; grayscale 600x800 resized)
+    imgs = sorted(Path(img_dir).glob("*.png"))
+    r["forward"] = {}
+    with torch.no_grad():
+        for precision in ("f32", "bf16"):
+            e = load_engine(str(ckpt), fast=(precision == "bf16"))
+            rows = {}
+            for bucket, group in (("512 rgb", imgs[:BATCH]),
+                                  ("600x800 gray", imgs[BATCH:2 * BATCH])):
+                batch = grayscale_view(np.stack([decode_rgb(p)
+                                                 for p in group]))
+                x = e._preprocess(torch.from_numpy(batch).cuda(), 50, True)
+                ref = forward_folded(e.params, x, e._dilations)
+                for nd, ns in ((2, 1), (1, 2), (1, 4), (2, 2)):
+                    torch.cuda.synchronize()
+                    cb.reset_launches()
+                    got = forward_folded_spmd({card: e.params}, x,
+                                              e._dilations, mesh=mesh(nd, ns))
+                    torch.cuda.synchronize()
+                    n = dict(cb.LAUNCHES)
+                    row = {
+                        "max_abs_dprob": float((got - ref).abs().max()),
+                        "mask_mismatch": float(((got > 0.3) != (ref > 0.3))
+                                               .float().mean()),
+                        "launches": {k: n.get(k, 0) for k in (
+                            "conv3x3_relu_pool", "conv3x3_relu_pool_ext",
+                            "dec1_head", "dec1_head_ext")}}
+                    rows[f"{bucket} {nd}x{ns}"] = row
+                    if precision == "f32":
+                        hold(torch.equal(got > 0.3, ref > 0.3),
+                             f"f32 forward_folded_spmd {nd}x{ns} {bucket}: "
+                             "masks differ")
+                    else:
+                        hold(row["mask_mismatch"] < 5e-2,
+                             f"bf16 forward_folded_spmd {nd}x{ns} {bucket}: "
+                             f"mismatch {row['mask_mismatch']}")
+                rows[f"{bucket} batch_split_first_divergence"] = \
+                    batch_split_divergence(e.params, x, e._dilations)
+            r["forward"][precision] = rows
+            del e
+    r["seconds"] = time.perf_counter() - t0
+    return r
 
 
 def k3_library(labels, cap):
@@ -1186,6 +1496,7 @@ def main() -> int:
     try:
         from unetdc_tpu_torch.device import resolve_device
         from unetdc_tpu_torch.ops import cuda_build as cb
+        from unetdc_tpu_torch.utils import profiling as prof
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
               file=sys.stderr)
@@ -1211,22 +1522,48 @@ def main() -> int:
         run_cli(img_dir, ckpt, work / "warm")  # first-call costs
         torch.cuda.synchronize()
         cb.reset_launches()
+        prof.reset_stages()
         t0 = time.perf_counter()
         pipe = run_cli(img_dir, ckpt, work / "out")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(cb.LAUNCHES)
+        host_split = prof.stage_totals()
         n_drop = check_artifacts(img_dir, work / "out")
         ms = pipe.engine.megastep_ms
+        prof.reset_stages()
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            run_cli(img_dir, ckpt, work / "prof_out",
+                    extra=["--profile", str(work / "prof")])
+        prof_wall = time.perf_counter() - t1
+        traces = list((work / "prof").glob("*.pt.trace.json"))
+        report = buf.getvalue()
+        check(len(traces) == 1 and "stage timings:" in report,
+              "--profile wrote no trace or no stage report")
         emit({"phase": "cli", "images": 16, "seconds": wall,
               "e2e_img_per_s": 16 / wall, "megastep_ms": ms,
               "megastep_ms_median": statistics.median(ms),
               "device_img_per_s": BATCH * len(ms) / (sum(ms) / 1e3),
-              "droplets": n_drop, "launches": launches})
+              "droplets": n_drop, "launches": launches,
+              "host_split_s": host_split,
+              "profile": {"seconds": prof_wall,
+                          "stage_totals_s": prof.stage_totals(),
+                          "stage_report": report[
+                              report.index("stage timings:"):].split(
+                                  "\n All done")[0].splitlines(),
+                          "trace_bytes": traces[0].stat().st_size}})
+        for name in ("host_decode", "h2d_upload", "device_fetch",
+                     "host_write_artifacts", "host_csv"):
+            check(name in host_split, f"stage {name} not timed")
         for k in ("conv3x3_relu_pool", "dec1_head", "component_tables"):
             check(launches.get(k, 0) >= 1, f"{k} never launched")
 
-        rows = kernel_rows(pipe.engine, img_dir, work / "out", launches)
+        rows, seen = kernel_rows(pipe.engine, img_dir, work / "out",
+                                 launches)
+        rows += ext_kernel_rows(seen)
+        del seen
         for r in rows:
             r["frac_of_bound"] = r["bound_ms"] / r["ms"]
             r["frac_of_bound_device"] = r["bound_ms"] / r["device_ms"]
@@ -1263,6 +1600,9 @@ def main() -> int:
         # bf16: a one-ulp rounding difference in enc1 propagates through
         # the whole network; a sanity bound only (see PERF.md)
         check(bf_mis < 5e-2 and x_mis < 5e-2, "bf16 path mask mismatch")
+        sharded = sharded_phase(work, img_dir, ckpt, cb)
+        emit(sharded)
+        check(not sharded["failed"], f"sharded: {sharded['failed']}")
 
         train = train_phase(work, cb)
         emit(train)
@@ -1277,12 +1617,16 @@ def main() -> int:
                      "launches"],
                  "int8_cli": int8["launches"],
                  "heatmap_v1": heat["heatmap_v1"]["launches"],
-                 "blobinspector": heat["blobinspector"]["launches"]}
+                 "blobinspector": heat["blobinspector"]["launches"],
+                 "sharded": sharded["launches"]}
         keys = {"K1": "conv3x3_relu_pool", "K2": "dec1_head",
-                "K3": "component_tables"}
+                "K3": "component_tables",
+                "K1_ext": "conv3x3_relu_pool_ext", "K2_ext": "dec1_head_ext"}
         for r in rows:
-            k = keys[r["name"][:2]]
+            k = keys[r["name"].split()[0]]
             r["launches_by_path"] = {p: n.get(k, 0) for p, n in paths.items()}
+            if k.endswith("_ext"):
+                r["launches"] = sharded["launches"].get(k, 0)
         emit({"kernels": rows})
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -4,7 +4,12 @@ tests/test_pallas_conv.py: K1 atol 2e-5 / rtol 1e-5, the f32 head
 atol 3e-6 / rtol 1e-5, bf16 |dprob| < 0.05 (the whole f32 forward: see
 its test). The CUDA kernels themselves are
 held to these plain versions on the card (test_torch_kernels_cuda.py,
-chip_smoke.py)."""
+chip_smoke.py).
+
+The JAX fast path applies upconv4..2 flipped (`lax.conv_transpose`; ROADMAP
+queue C), so the whole-forward tests give it the kernels flipped back
+(`_flip_up`, as tests/test_torch_int8.py does), on weights where the flip
+moves the output by far more than the tolerance (asserted)."""
 
 import numpy as np
 import pytest
@@ -29,10 +34,33 @@ def variables():
     return jax.tree_util.tree_map(np.asarray, v)
 
 
+@pytest.fixture(scope="module")
+def decisive(tmp_path_factory):
+    """Variables of a decisive checkpoint (logits centred and scaled by
+    300): here the upconv flip moves the probabilities by ~0.06, against
+    ~5e-6 with the init of `variables`."""
+    from tests.torch_reference import make_decisive_checkpoint
+    from unetdc_tpu.checkpoint import (load_pth_state_dict,
+                                       torch_state_dict_to_variables)
+
+    path = tmp_path_factory.mktemp("decisive") / "m.pth"
+    make_decisive_checkpoint(str(path), seed=2, img_size=64)
+    return torch_state_dict_to_variables(load_pth_state_dict(str(path)))
+
+
 def _jax_fp(v, dtype):
     fp = JF.build_fast_params(fold_batchnorm(v)["params"], dtype=dtype)
     fp["_pa"] = JF.build_pallas_head_params(fold_batchnorm(v)["params"],
                                             dtype=dtype)
+    return fp
+
+
+def _flip_up(fp):
+    """Copy of JAX fast params with the upconv4..2 kernels flipped back."""
+    fp = dict(fp)
+    for n in (4, 3, 2):
+        fp[f"upconv{n}"] = dict(fp[f"upconv{n}"],
+                                k=fp[f"upconv{n}"]["k"][::-1, ::-1])
     return fp
 
 
@@ -83,26 +111,33 @@ def test_k2_plain_matches_dec1_head_interpret(variables):
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 96), (1, 32, 32)])
-def test_forward_matches_pallas_forward_f32(variables, shape):
+def test_forward_matches_pallas_forward_f32(decisive, shape):
     x = np.random.RandomState(8).rand(*shape, 3).astype(np.float32)
+    jfp = _jax_fp(decisive, jnp.float32)
     ref = np.asarray(JF.forward_folded_pallas(
-        _jax_fp(variables, jnp.float32), jnp.asarray(x), interpret=True))
-    got = forward_folded(_port_fp(variables, torch.float32),
+        _flip_up(jfp), jnp.asarray(x), interpret=True))
+    flipped = np.asarray(JF.forward_folded_pallas(
+        jfp, jnp.asarray(x), interpret=True))
+    # the test must see the flip: it moves the output by > 10x the atol
+    assert np.abs(flipped - ref).max() > 10 * 2e-5
+    got = forward_folded(_port_fp(decisive, torch.float32),
                          torch.from_numpy(x)).numpy()
     assert got.shape == ref.shape
     # K1 and K2 alone meet test_pallas_conv's bounds (tests above); the whole
     # forward also runs eight library-conv blocks whose f32 summation order
-    # differs between XLA and ATen (measured up to 1.1e-5 at 64x96), so it
-    # is held at K1's atol
+    # differs between XLA and ATen (measured up to 5.9e-6 here), so it is
+    # held at K1's atol
     np.testing.assert_allclose(got, ref, atol=2e-5, rtol=1e-5)
 
 
 def test_forward_bf16_close_to_pallas_f32(variables):
     x = np.random.RandomState(9).rand(1, 32, 48, 3).astype(np.float32)
     ref = np.asarray(JF.forward_folded_pallas(
-        _jax_fp(variables, jnp.float32), jnp.asarray(x), interpret=True))
+        _flip_up(_jax_fp(variables, jnp.float32)), jnp.asarray(x),
+        interpret=True))
     jb = np.asarray(JF.forward_folded_pallas(
-        _jax_fp(variables, jnp.bfloat16), jnp.asarray(x), interpret=True))
+        _flip_up(_jax_fp(variables, jnp.bfloat16)), jnp.asarray(x),
+        interpret=True))
     got = forward_folded(_port_fp(variables, torch.bfloat16),
                          torch.from_numpy(x)).numpy()
     assert got.dtype == np.float32

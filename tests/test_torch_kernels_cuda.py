@@ -6,6 +6,9 @@ skip. Run them with `python -m pytest -m cuda tests/test_torch_kernels_cuda.py`.
 Shapes are deliberately not multiples of the kernels' tiles, so the ragged
 edges are covered, and the main path's shapes (batch 8 at 512x512) run too.
 
+The `ext` mode of K1 and K2 (row shards with real halo rows) is held
+bit-equal: shards reassembled equal the unsharded kernel.
+
 Tolerances: f32 kernels differ from cuDNN f32 only in summation order
 (K1 atol 2e-5 / rtol 1e-5, K2 atol 3e-6 / rtol 1e-5, as the JAX package
 holds its Pallas kernels); bf16 outputs may differ by one bf16 rounding step
@@ -109,6 +112,77 @@ def test_k1_main_path_shape(dev):
 
 def test_k2_main_path_shape(dev):
     _k2_case(dev, torch.bfloat16, 8, 512, 512, seed=6)
+
+
+def _shards(t, S, n):
+    from unetdc_tpu_torch.models.unet_fast import halo
+
+    return halo(list(torch.chunk(t, S, 1)), n, 1)
+
+
+# ext mode: row shards with real halo rows; S = 1 is the ext launch with
+# zero halos and both edge flags set, so S in (1, 2, 4) covers the four
+# flag patterns (1,1), (1,0), (0,0), (0,1). Shard heights 40/S and 36/S
+# are not multiples of the 16- and 32-row tiles, so tiles straddle seams.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("shape", [(2, 40, 56), (8, 512, 512)], ids=str)
+def test_k1_ext_shards_bit_equal(dev, dtype, S, shape):
+    from unetdc_tpu_torch.ops import fused_conv as fc
+
+    B, H, W = shape
+    r = np.random.RandomState(21)
+    x = _t(np.maximum(r.randn(B, H, W, 64), 0), dev, dtype)
+    w = _t(r.randn(3, 3, 64, 64) * 0.1, dev, dtype)
+    b = _t(r.randn(64) * 0.1, dev, torch.float32)
+    y, p = fc.conv3x3_relu_pool(x, w, b)
+    parts = [fc.conv3x3_relu_pool(s, w, b, ext=True)
+             for s in _shards(x, S, 1)]
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([q[0] for q in parts], 1), y)
+    assert torch.equal(torch.cat([q[1] for q in parts], 1), p)
+    s0 = _shards(x, S, 1)[0]
+    yr, pr = fc.conv3x3_relu_pool_plain(s0, w, b, ext=True)
+    tol = (dict(atol=2e-5, rtol=1e-5) if dtype == torch.float32
+           else dict(atol=1e-2, rtol=1e-2))
+    torch.testing.assert_close(parts[0][0].float(), yr.float(), **tol)
+    torch.testing.assert_close(parts[0][1].float(), pr.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("shape", [(2, 72, 40), (8, 512, 512)], ids=str)
+def test_k2_ext_shards_bit_equal(dev, dtype, S, shape):
+    from unetdc_tpu_torch.ops import fused_conv as fc
+
+    B, H, W = shape
+    r = np.random.RandomState(22)
+    dec2 = _t(np.maximum(r.randn(B, H // 2, W // 2, 128), 0), dev, dtype)
+    enc1 = _t(np.maximum(r.randn(B, H, W, 64), 0), dev, dtype)
+    head = {
+        "w_up": _t(r.randn(2, 2, 128, 64) * 0.1, dev, dtype),
+        "b_up": _t(r.randn(64) * 0.1, dev, torch.float32),
+        "w0": _t(r.randn(3, 3, 128, 64) * 0.05, dev, dtype),
+        "b0": _t(r.randn(64) * 0.1, dev, torch.float32),
+        "w1": _t(r.randn(3, 3, 64, 64) * 0.05, dev, dtype),
+        "b1": _t(r.randn(64) * 0.1, dev, torch.float32),
+        "w_oc": _t(r.randn(64) * 0.2, dev, dtype),
+        "b_oc": _t(r.randn(1) * 0.1, dev, torch.float32),
+    }
+    ref = fc.dec1_head(dec2, enc1, head)
+    ds, es = _shards(dec2, S, 1), _shards(enc1, S, 2)
+    flags = [(i == 0, i == S - 1) for i in range(S)]
+    out = [fc.dec1_head(d, e, head, ext=True, edge_flags=f)
+           for d, e, f in zip(ds, es, flags)]
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(out, 1), ref)
+    for i in {0, S - 1}:
+        pl = fc.dec1_head_plain(ds[i], es[i], head, ext=True,
+                                edge_flags=flags[i])
+        if dtype == torch.float32:
+            torch.testing.assert_close(out[i], pl, atol=3e-6, rtol=1e-5)
+        else:
+            assert float((out[i] - pl).abs().max()) < 0.05
 
 
 @pytest.mark.parametrize("cap", [5120, 9000, 20000])

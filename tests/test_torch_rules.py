@@ -36,7 +36,8 @@ for n in ("losses", "data.augment", "data.dataset", "train.trainer",
           "cli.train_dc_focal", "checkpoint.native", "ops.diffmap",
           "ops.filters", "models.unet_int8", "ops.threshold", "ops.roi",
           "ops.density", "ops.contours", "pipelines.heatmaps",
-          "cli.quantify_pipline", "cli.quantify"):
+          "cli.quantify_pipline", "cli.quantify", "core.mesh",
+          "utils.profiling"):
     assert "unetdc_tpu_torch." + n in names, n
 """
     r = subprocess.run([sys.executable, "-c", code.format(
@@ -130,16 +131,16 @@ def test_train_entry_points_default_to_cuda(monkeypatch, tmp_path, which):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--image_dir", "img", "--mask_dir", "msk",
                   "--img_size", "32"])
-    with pytest.raises(SystemExit, match="item 10"):
+    with pytest.raises(SystemExit, match="ROADMAP queue A, Multi-GPU"):
         cli.main(["--image_dir", "img", "--mask_dir", "msk",
                   "--data_parallel", "2"])
 
 
 @pytest.mark.parametrize("cli", ["quantify_pipline", "quantify"])
 def test_heatmap_clis_default_to_cuda(monkeypatch, tmp_path, cli):
-    """Both heatmap CLIs run on the card unless asked, raise (no CPU
-    fallback) when there is none, and refuse --data_parallel naming
-    ROADMAP item 10."""
+    """Both heatmap CLIs run on the card unless asked, and raise (no CPU
+    fallback) when there is none, also with --data_parallel (the mesh
+    finds no card)."""
     import importlib
 
     from PIL import Image
@@ -160,8 +161,94 @@ def test_heatmap_clis_default_to_cuda(monkeypatch, tmp_path, cli):
                    str(tmp_path / "out")]
     with pytest.raises(RuntimeError, match="CUDA"):
         mod.main(argv)
-    with pytest.raises(SystemExit, match="item 10"):
+    with pytest.raises(ValueError, match="needs 2 devices, have 0"):
         mod.main(argv + ["--data_parallel", "2"])
+
+
+INFERENCE_CLIS = ["quantify_droplets_batch", "quantify_pipline", "quantify"]
+
+
+def _small_engines(monkeypatch):
+    """The CLIs build 512-input engines, seconds an image on the CPU; the
+    CLI tests run them at 32."""
+    from unetdc_tpu_torch.pipelines.engine import QuantifyEngine
+
+    init = QuantifyEngine.__init__
+
+    def small(self, *a, **k):
+        init(self, *a, **k)
+        self.img_size = 32
+
+    monkeypatch.setattr(QuantifyEngine, "__init__", small)
+
+
+@pytest.mark.parametrize("cli", INFERENCE_CLIS)
+def test_inference_clis_run_data_parallel_on_cpu(monkeypatch, tmp_path,
+                                                 cli):
+    """--data_parallel 2 --device cpu splits each batch over two CPU mesh
+    slots and writes the same CSVs as the one-device run."""
+    import importlib
+
+    import numpy as np
+    from PIL import Image
+
+    from tests.torch_reference import make_decisive_checkpoint
+
+    if cli != "quantify_droplets_batch":
+        pytest.importorskip("matplotlib")
+    _small_engines(monkeypatch)
+    mod = importlib.import_module(f"unetdc_tpu_torch.cli.{cli}")
+    rng = np.random.RandomState(4)
+    (tmp_path / "img").mkdir()
+    yy, xx = np.mgrid[:40, :48]
+    for i in range(5):
+        img = (rng.rand(40, 48, 3) * 60).astype(np.uint8)
+        blob = (yy - rng.randint(8, 32)) ** 2 + (xx - rng.randint(8, 40)) \
+            ** 2 <= rng.randint(3, 8) ** 2
+        img[blob] = 240
+        Image.fromarray(img).save(tmp_path / "img" / f"a{i}.png")
+    ckpt = tmp_path / "m.pth"
+    make_decisive_checkpoint(str(ckpt), seed=1, img_size=32)
+    runs = []
+    for dp in ([], ["--data_parallel", "2"]):
+        out = tmp_path / f"out{len(runs)}"
+        pipe = mod.main(["--img_dir", str(tmp_path / "img"), "--ckpt_path",
+                         str(ckpt), "--out_dir", str(out), "--batch", "4",
+                         "--device", "cpu", "--px_per_micron", "2.0"]
+                        + (["--skip_histogram"]
+                           if cli == "quantify_droplets_batch" else [])
+                        + dp)
+        runs.append((out, pipe.engine))
+    assert runs[0][1].mesh is None
+    assert runs[1][1].mesh.shape == {"data": 2, "space": 1}
+    csvs = sorted(p.name for p in runs[0][0].glob("*.csv"))
+    assert len(csvs) >= 5
+    for name in csvs:
+        assert (runs[1][0] / name).read_bytes() == \
+            (runs[0][0] / name).read_bytes(), name
+
+
+@pytest.mark.parametrize("cli", INFERENCE_CLIS)
+def test_inference_clis_data_parallel_needs_the_cards(monkeypatch, tmp_path,
+                                                      cli):
+    """--device cuda --data_parallel 2 on a host with one card raises the
+    mesh's error; nothing runs on the CPU instead."""
+    import importlib
+
+    from unetdc_tpu_torch.pipelines import engine as E
+
+    def no_engine(*a, **k):
+        raise AssertionError("an engine was built")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(E.QuantifyEngine, "__init__", no_engine)
+    mod = importlib.import_module(f"unetdc_tpu_torch.cli.{cli}")
+    (tmp_path / "img").mkdir()
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
+        mod.main(["--img_dir", str(tmp_path / "img"), "--px_per_micron",
+                  "2.0", "--data_parallel", "2", "--out_dir",
+                  str(tmp_path / "out")])
 
 
 def test_kernel_wrappers_take_plain_version_only_on_cpu(monkeypatch):

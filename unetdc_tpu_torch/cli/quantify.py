@@ -8,17 +8,16 @@ JAX package's CLI of the same name.
         --px_per_micron 3.45 [--ckpt_path ...] [--out_dir quanti_results]
         [--kernel_size 55] [--nb_layers 3] [--contour_thresh 0]
         [--contour_min_size 20] [--precision {bf16,f32}]
-        [--device {cuda,cpu}]
+        [--device {cuda,cpu}] [--data_parallel N]
 
 Runs on the GPU unless `--device cpu` is given; without a GPU it fails
-rather than fall back to the CPU. `--data_parallel` is not ported yet.
+rather than fall back to the CPU. `--data_parallel N` splits each batch
+over N devices, as the JAX CLI's flag does.
 """
 
 from __future__ import annotations
 
 import argparse
-
-from unetdc_tpu_torch.cli.quantify_pipline import MULTI_GPU
 
 
 def build_parser():
@@ -37,7 +36,7 @@ def build_parser():
     p.add_argument("--contour_min_size", type=int, default=20)
     p.add_argument("--precision", choices=["bf16", "f32"], default="bf16")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help=f"not available: {MULTI_GPU}")
+                   help="shard the batch over N devices (0 = one device)")
     p.add_argument("--max_labels", type=int, default=4096,
                    help="per-image component table capacity")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -47,20 +46,21 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit(f"--data_parallel: {MULTI_GPU}")
 
     import torch
 
+    from unetdc_tpu_torch.core.mesh import make_mesh
     from unetdc_tpu_torch.pipelines.engine import load_state_dict
     from unetdc_tpu_torch.pipelines.heatmaps import (BlobInspectorEngine,
                                                      BlobInspectorPipeline)
 
+    mesh = (make_mesh(args.data_parallel, devices=args.device)
+            if args.data_parallel else None)
     engine = BlobInspectorEngine(
         load_state_dict(args.ckpt_path),
         compute_dtype=torch.bfloat16 if args.precision == "bf16"
         else torch.float32, max_labels=args.max_labels, device=args.device,
-        kernel_size=args.kernel_size,
+        mesh=mesh, kernel_size=args.kernel_size,
         nb_layers=args.nb_layers, contour_thresh=args.contour_thresh,
         contour_min_size=args.contour_min_size)
     pipe = BlobInspectorPipeline(
@@ -68,6 +68,7 @@ def main(argv=None):
         min_area=args.min_area, px_per_micron=args.px_per_micron,
         save_overlays=args.save_overlays)
     pipe.run(args.img_dir)
+    engine.close()
     print("✅ All done! Outputs are in", pipe.out_dir)
     return pipe
 

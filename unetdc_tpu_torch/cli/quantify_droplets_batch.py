@@ -8,9 +8,13 @@ tree), running the PyTorch/CUDA port.
         [--save_overlays] [--background_radius 50] [--skip_excel]
         [--skip_histogram] [--precision {bf16,f32}] [--max_labels N]
         [--int8 [--int8_calib {auto,none,PATH}]] [--device {cuda,cpu}]
+        [--data_parallel N] [--profile LOG_DIR]
 
 Runs on the GPU unless `--device cpu` is given; without a GPU it fails
-rather than fall back to the CPU.
+rather than fall back to the CPU. `--data_parallel N` splits each batch
+over N devices (N cards; with `--device cpu`, N logical CPU slots), as the
+JAX CLI's flag does; `--batch` must divide over them. `--profile LOG_DIR`
+writes a torch.profiler trace there and prints the stage timings.
 """
 
 from __future__ import annotations
@@ -53,6 +57,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "every run, save nothing")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where to run (default: the GPU)")
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="shard the batch over N devices (0 = one device)")
+    p.add_argument("--profile", default=None, metavar="LOG_DIR",
+                   help="write a torch.profiler trace to LOG_DIR and print "
+                        "the stage timings")
     return p
 
 
@@ -65,14 +74,19 @@ def main(argv=None):
         parser.error("--int8 contradicts --precision f32 (the parity path); "
                      "drop one of the two flags")
 
+    from unetdc_tpu_torch.core.mesh import make_mesh
     from unetdc_tpu_torch.pipelines.engine import load_engine
     from unetdc_tpu_torch.pipelines.quantify_batch import BatchQuantifyPipeline
+    from unetdc_tpu_torch.utils.profiling import profile_trace, stage_report
 
+    mesh = (make_mesh(args.data_parallel, devices=args.device)
+            if args.data_parallel else None)
     calib_path = None
     if args.int8 and args.int8_calib != "none":
         calib_path = (args.ckpt_path + ".int8calib.npz"
                       if args.int8_calib == "auto" else args.int8_calib)
-    engine = load_engine(args.ckpt_path, fast=(args.precision == "bf16"),
+    engine = load_engine(args.ckpt_path, mesh=mesh,
+                         fast=(args.precision == "bf16"),
                          max_labels=args.max_labels, device=args.device,
                          quantize="int8" if args.int8 else None,
                          calib_path=calib_path)
@@ -81,9 +95,13 @@ def main(argv=None):
         min_area=args.min_area, px_per_micron=args.px_per_micron,
         save_overlays=args.save_overlays,
         background_radius=args.background_radius)
-    pipe.run(args.img_dir)
+    with profile_trace(args.profile):
+        pipe.run(args.img_dir)
     pipe.write_reports(skip_excel=args.skip_excel,
                        skip_histogram=args.skip_histogram)
+    engine.close()
+    if args.profile:
+        print(stage_report())
     # stdout contract consumed by the GUIs
     print("\n All done. Outputs are in ", pipe.out_dir)
     return pipe

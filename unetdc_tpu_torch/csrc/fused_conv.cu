@@ -74,6 +74,19 @@
 //
 // The f32 instantiations (the parity path: --precision f32) keep the first
 // design's tiling with plain FMA, never TF32.
+//
+// ext mode (both kernels, both types): the counterpart of the Pallas
+// kernels' ext=True, for one row shard of the image under a space-sharded
+// mesh (models/unet_fast.py::forward_folded_spmd). The inputs carry real
+// halo rows from the neighbouring shards (K1: x has H + 2 rows; K2: dec2
+// H/2 + 2, enc1 H + 4), so each window's origin moves down by the halo and
+// TMA's zero fill pads only the width, never a shard seam; K2's up and h
+// row masks fire only where the flags say the shard touches the global
+// image edge (top, bot), never at a seam or at a tile edge inside a shard.
+// Per output pixel the arithmetic is the same wherever the shard starts, so
+// shards reassembled from ext launches equal the unsharded kernel bit for
+// bit. Cost over ext = 0: one add per window origin and two compares per
+// masked row; the bound is the shard's share of the unsharded kernel's.
 
 #include "common.cuh"
 
@@ -98,7 +111,7 @@ k1_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
                const __grid_constant__ CUtensorMap ymap,
                const __grid_constant__ CUtensorMap pmap,
                const float* __restrict__ bias, int tiles_x, int tiles_y,
-               int ntiles) {
+               int ntiles, int ext) {
   using namespace k1;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t s_w = smem_u32(smem), s_win = s_w + WB;
@@ -123,8 +136,10 @@ k1_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
     int b, y0, x0;
     origin(t, b, y0, x0);
     mbar_expect_tx(bar + 8 * buf, WIN_TX);
-    tma_load_4d(s_win + buf * WIN, &xmap, bar + 8 * buf, 0, x0 - 1, y0 - 1,
-                b);
+    // ext: x holds a real halo row above the shard, so the window of
+    // output row y0 starts at x's row y0 (else at y0 - 1, zero-filled)
+    tma_load_4d(s_win + buf * WIN, &xmap, bar + 8 * buf, 0, x0 - 1,
+                y0 - 1 + ext, b);
   };
 
   if (tid == 0) {
@@ -234,10 +249,10 @@ k1_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
 }
 
 int launch_k1_bf16(const void* x, const void* w, const void* bias, void* y,
-                   void* pool, int B, int H, int W, void* stream) {
+                   void* pool, int B, int H, int W, int ext, void* stream) {
   using namespace k1;
   CUtensorMap xm, wm, ym, pm;
-  cudaError_t e = nhwc_map(&xm, x, B, H, W, 64, RW, RR);
+  cudaError_t e = nhwc_map(&xm, x, B, H + 2 * ext, W, 64, RW, RR);
   if (e == cudaSuccess) e = rows_map(&wm, w, 9 * 64);
   if (e == cudaSuccess) e = nhwc_map(&ym, y, B, H, W, 64, TW, TH);
   if (e == cudaSuccess)
@@ -252,7 +267,7 @@ int launch_k1_bf16(const void* x, const void* w, const void* bias, void* y,
   if (ntiles == 0) return 0;
   const int grid = ntiles < sm_count() ? ntiles : sm_count();
   k1_bf16_kernel<<<grid, WARPS * 32, SMEM, (cudaStream_t)stream>>>(
-      xm, wm, ym, pm, (const float*)bias, tiles_x, tiles_y, ntiles);
+      xm, wm, ym, pm, (const float*)bias, tiles_x, tiles_y, ntiles, ext);
   return (int)cudaGetLastError();
 }
 
@@ -289,7 +304,8 @@ k2_bf16_kernel(const __grid_constant__ CUtensorMap dmap,
                const float* __restrict__ b_up, const float* __restrict__ b0,
                const float* __restrict__ b1, const bf16* __restrict__ w_oc,
                const float* __restrict__ b_oc, float* __restrict__ out, int H,
-               int W, int tiles_x, int tiles_y, int ntiles) {
+               int W, int tiles_x, int tiles_y, int ntiles, int ext, int top,
+               int bot) {
   using namespace k2;
   extern __shared__ __align__(1024) unsigned char smem[];
   // r0: up (stages 1-2), then h (3-4); r1: dec2 (1), then enc1 (3)
@@ -325,14 +341,16 @@ k2_bf16_kernel(const __grid_constant__ CUtensorMap dmap,
     int b, y0, x0;
     origin(t, b, y0, x0);
     mbar_expect_tx(dbar, 2 * DPLANE);
-    tma_load_4d(s_r1, &dmap, dbar, 0, x0 / 2 - 1, y0 / 2 - 1, b);
-    tma_load_4d(s_r1 + DPLANE, &dmap, dbar, 64, x0 / 2 - 1, y0 / 2 - 1, b);
+    // ext: dec2 holds one real halo row above the shard, enc1 two
+    tma_load_4d(s_r1, &dmap, dbar, 0, x0 / 2 - 1, y0 / 2 - 1 + ext, b);
+    tma_load_4d(s_r1 + DPLANE, &dmap, dbar, 64, x0 / 2 - 1, y0 / 2 - 1 + ext,
+                b);
   };
   auto load_enc1 = [&](int t) {
     int b, y0, x0;
     origin(t, b, y0, x0);
     mbar_expect_tx(ebar, REG);
-    tma_load_4d(s_r1, &emap, ebar, 0, x0 - 2, y0 - 2, b);
+    tma_load_4d(s_r1, &emap, ebar, 0, x0 - 2, y0 - 2 + 2 * ext, b);
   };
   // Weight ring: step j reads slot j % STAGES once block j has landed.
   // Once its warpgroup's products of step j have completed, each warp
@@ -430,14 +448,16 @@ k2_bf16_kernel(const __grid_constant__ CUtensorMap dmap,
         }
         wg_wait<0>();
         fence_regs(acc);
-        // bias, edge mask (0 outside the image), round, into the up region
+        // bias, edge mask (0 outside the image; rows only at a global
+        // edge: top / bot), round, into the up region
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int dd = d0 + g + 8 * hh;
           if (dd >= ND) continue;
           const int ry = 2 * (dd / DW) + p, rx = 2 * (dd % DW) + qq;
           const int gy = y0 - 2 + ry, gx = x0 - 2 + rx;
-          const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+          const bool in = (gy >= 0 || !top) && (gy < H || !bot) && gx >= 0 &&
+                          gx < W;
 #pragma unroll
           for (int nt = 0; nt < 8; ++nt)
             sts32(s_r0 + swz(ry * CW + rx, nt) + 4 * q,
@@ -507,7 +527,8 @@ k2_bf16_kernel(const __grid_constant__ CUtensorMap dmap,
           const int m = 16 * (2 * warp + mt) + g + 8 * hh;
           if (m >= NH) continue;
           const int gy = y0 - 1 + m / HW, gx = x0 - 1 + m % HW;
-          const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+          const bool in = (gy >= 0 || !top) && (gy < H || !bot) && gx >= 0 &&
+                          gx < W;
 #pragma unroll
           for (int nt = 0; nt < 8; ++nt)
             sts32(s_r0 + swz(m, nt) + 4 * q,
@@ -598,12 +619,14 @@ k2_bf16_kernel(const __grid_constant__ CUtensorMap dmap,
 int launch_k2_bf16(const void* dec2, const void* enc1, const void* w_up,
                    const void* b_up, const void* w0, const void* b0,
                    const void* w1, const void* b1, const void* w_oc,
-                   const void* b_oc, void* out, int B, int H, int W,
-                   void* stream) {
+                   const void* b_oc, void* out, int B, int H, int W, int ext,
+                   int top, int bot, void* stream) {
   using namespace k2;
   CUtensorMap dm, em, um, w0m, w1m;
-  cudaError_t e = nhwc_map(&dm, dec2, B, H / 2, W / 2, 128, DW, DR);
-  if (e == cudaSuccess) e = nhwc_map(&em, enc1, B, H, W, 64, CW, CR);
+  cudaError_t e =
+      nhwc_map(&dm, dec2, B, H / 2 + 2 * ext, W / 2, 128, DW, DR);
+  if (e == cudaSuccess)
+    e = nhwc_map(&em, enc1, B, H + 4 * ext, W, 64, CW, CR);
   if (e == cudaSuccess) e = rows_map(&um, w_up, 4 * 128);
   if (e == cudaSuccess) e = rows_map(&w0m, w0, 9 * 128);
   if (e == cudaSuccess) e = rows_map(&w1m, w1, 9 * 64);
@@ -623,7 +646,7 @@ int launch_k2_bf16(const void* dec2, const void* enc1, const void* w_up,
   k2_bf16_kernel<<<grid, WARPS * 32, SMEM, (cudaStream_t)stream>>>(
       dm, em, um, w0m, w1m, (const float*)b_up, (const float*)b0,
       (const float*)b1, (const bf16*)w_oc, (const float*)b_oc, (float*)out, H,
-      W, tiles_x, tiles_y, ntiles);
+      W, tiles_x, tiles_y, ntiles, ext, top, bot);
   return (int)cudaGetLastError();
 }
 
@@ -645,7 +668,7 @@ constexpr size_t SMEM = IN_BYTES + Y_BYTES + (size_t)64 * LD * 4;
 __global__ void __launch_bounds__(k1f::WARPS * 32)
 k1_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
               const float* __restrict__ bias, float* __restrict__ y,
-              float* __restrict__ pool, int H, int W) {
+              float* __restrict__ pool, int H, int W, int ext) {
   using namespace k1f;
   extern __shared__ __align__(1024) unsigned char smem[];
   float* sin = reinterpret_cast<float*>(smem);
@@ -655,8 +678,9 @@ k1_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int b = blockIdx.z;
   const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
 
-  load_window_f32<64>(sin, LD, 0, x + (size_t)b * H * W * 64, H, W, y0 - 1,
-                      x0 - 1, RR, RW);
+  // ext: x has H + 2 rows, a real halo row above and below the shard
+  load_window_f32<64>(sin, LD, 0, x + (size_t)b * (H + 2 * ext) * W * 64,
+                      H + 2 * ext, W, y0 - 1 + ext, x0 - 1, RR, RW);
   zero_pixels_f32<64>(sin, LD, RR * RW, INP);
 
   constexpr int NF = (OF + WARPS - 1) / WARPS;
@@ -700,7 +724,7 @@ k1_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 int launch_k1_f32(const void* x, const void* w, const void* bias, void* y,
-                  void* pool, int B, int H, int W, void* stream) {
+                  void* pool, int B, int H, int W, int ext, void* stream) {
   cudaError_t e = cudaFuncSetAttribute(
       k1_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)k1f::SMEM);
@@ -708,7 +732,7 @@ int launch_k1_f32(const void* x, const void* w, const void* bias, void* y,
   dim3 grid((W + k1f::TW - 1) / k1f::TW, (H + k1f::TH - 1) / k1f::TH, B);
   k1_f32_kernel<<<grid, k1f::WARPS * 32, k1f::SMEM, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)w, (const float*)bias, (float*)y,
-      (float*)pool, H, W);
+      (float*)pool, H, W, ext);
   return (int)cudaGetLastError();
 }
 
@@ -739,7 +763,8 @@ k2_f32_kernel(const float* __restrict__ dec2, const float* __restrict__ enc1,
               const float* __restrict__ w0, const float* __restrict__ b0,
               const float* __restrict__ w1, const float* __restrict__ b1,
               const float* __restrict__ w_oc, const float* __restrict__ b_oc,
-              float* __restrict__ out, int H, int W) {
+              float* __restrict__ out, int H, int W, int ext, int top,
+              int bot) {
   using namespace k2f;
   extern __shared__ __align__(1024) unsigned char smem[];
   float* sc = reinterpret_cast<float*>(smem);
@@ -752,12 +777,14 @@ k2_f32_kernel(const float* __restrict__ dec2, const float* __restrict__ enc1,
   const int H2 = H / 2, W2 = W / 2;
 
   // dec2 window (rows y0/2-1.., cols x0/2-1..) and the enc1 half of the
-  // concat window (rows y0-2.., cols x0-2..), zero outside the image
-  load_window_f32<128>(sd, LDC, 0, dec2 + (size_t)b * H2 * W2 * 128, H2, W2,
-                       y0 / 2 - 1, x0 / 2 - 1, DR, DW);
+  // concat window (rows y0-2.., cols x0-2..), zero outside the tensor; in
+  // ext mode dec2 carries 1 real halo row above and below, enc1 2
+  const int D2 = H2 + 2 * ext, E1 = H + 4 * ext;
+  load_window_f32<128>(sd, LDC, 0, dec2 + (size_t)b * D2 * W2 * 128, D2, W2,
+                       y0 / 2 - 1 + ext, x0 / 2 - 1, DR, DW);
   zero_pixels_f32<128>(sd, LDC, DR * DW, DP);
-  load_window_f32<64>(sc, LDC, 64, enc1 + (size_t)b * H * W * 64, H, W,
-                      y0 - 2, x0 - 2, CR, RW);
+  load_window_f32<64>(sc, LDC, 64, enc1 + (size_t)b * E1 * W * 64, E1, W,
+                      y0 - 2 + 2 * ext, x0 - 2, CR, RW);
   zero_pixels_f32<128>(sc, LDC, CR * RW, CATP);
   __syncthreads();
 
@@ -775,7 +802,8 @@ k2_f32_kernel(const float* __restrict__ dec2, const float* __restrict__ enc1,
     const int ry = 2 * dr + (pq >> 1), rx = 2 * dc + (pq & 1);
     const int gy = y0 - 2 + ry, gx = x0 - 2 + rx;
     const bool valid = m < DR * DW;
-    const bool inimg = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    const bool inimg =
+        (gy >= 0 || !top) && (gy < H || !bot) && gx >= 0 && gx < W;
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
       float v[8];
@@ -800,8 +828,8 @@ k2_f32_kernel(const float* __restrict__ dec2, const float* __restrict__ enc1,
     const int m = f * 16 + (lane >> 1);
     const int r = m / RW, c = m % RW;
     const int gy = y0 - 1 + r, gx = x0 - 1 + c;
-    const bool inimg = r < HR && c < TW + 2 && gy >= 0 && gy < H && gx >= 0 &&
-                       gx < W;
+    const bool inimg = r < HR && c < TW + 2 && (gy >= 0 || !top) &&
+                       (gy < H || !bot) && gx >= 0 && gx < W;
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
       float v[8];
@@ -843,8 +871,8 @@ k2_f32_kernel(const float* __restrict__ dec2, const float* __restrict__ enc1,
 int launch_k2_f32(const void* dec2, const void* enc1, const void* w_up,
                   const void* b_up, const void* w0, const void* b0,
                   const void* w1, const void* b1, const void* w_oc,
-                  const void* b_oc, void* out, int B, int H, int W,
-                  void* stream) {
+                  const void* b_oc, void* out, int B, int H, int W, int ext,
+                  int top, int bot, void* stream) {
   cudaError_t e = cudaFuncSetAttribute(
       k2_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)k2f::SMEM);
@@ -854,7 +882,7 @@ int launch_k2_f32(const void* dec2, const void* enc1, const void* w_up,
       (const float*)dec2, (const float*)enc1, (const float*)w_up,
       (const float*)b_up, (const float*)w0, (const float*)b0, (const float*)w1,
       (const float*)b1, (const float*)w_oc, (const float*)b_oc, (float*)out, H,
-      W);
+      W, ext, top, bot);
   return (int)cudaGetLastError();
 }
 
@@ -862,34 +890,38 @@ int launch_k2_f32(const void* dec2, const void* enc1, const void* w_up,
 
 extern "C" {
 
+// H is the output height; ext = 1: the inputs carry real halo rows (K1: x
+// H + 2 rows; K2: dec2 H/2 + 2, enc1 H + 4), and K2's row masks fire only
+// at a global edge (top / bot = 1). ext = 0 is the unsharded kernel (top =
+// bot = 1).
 int k1_conv3x3_relu_pool_bf16(const void* x, const void* w, const void* b,
                               void* y, void* pool, int B, int H, int W,
-                              void* stream) {
-  return unetdc::launch_k1_bf16(x, w, b, y, pool, B, H, W, stream);
+                              int ext, void* stream) {
+  return unetdc::launch_k1_bf16(x, w, b, y, pool, B, H, W, ext, stream);
 }
 
 int k1_conv3x3_relu_pool_f32(const void* x, const void* w, const void* b,
                              void* y, void* pool, int B, int H, int W,
-                             void* stream) {
-  return unetdc::launch_k1_f32(x, w, b, y, pool, B, H, W, stream);
+                             int ext, void* stream) {
+  return unetdc::launch_k1_f32(x, w, b, y, pool, B, H, W, ext, stream);
 }
 
 int k2_dec1_head_bf16(const void* dec2, const void* enc1, const void* w_up,
                       const void* b_up, const void* w0, const void* b0,
                       const void* w1, const void* b1, const void* w_oc,
                       const void* b_oc, void* out, int B, int H, int W,
-                      void* stream) {
+                      int ext, int top, int bot, void* stream) {
   return unetdc::launch_k2_bf16(dec2, enc1, w_up, b_up, w0, b0, w1, b1, w_oc,
-                                b_oc, out, B, H, W, stream);
+                                b_oc, out, B, H, W, ext, top, bot, stream);
 }
 
 int k2_dec1_head_f32(const void* dec2, const void* enc1, const void* w_up,
                      const void* b_up, const void* w0, const void* b0,
                      const void* w1, const void* b1, const void* w_oc,
                      const void* b_oc, void* out, int B, int H, int W,
-                     void* stream) {
+                     int ext, int top, int bot, void* stream) {
   return unetdc::launch_k2_f32(dec2, enc1, w_up, b_up, w0, b0, w1, b1, w_oc,
-                               b_oc, out, B, H, W, stream);
+                               b_oc, out, B, H, W, ext, top, bot, stream);
 }
 
 }  // extern "C"

@@ -77,9 +77,10 @@ def component_tables(labels: torch.Tensor, shifts: Sequence[int] = (0, 8),
     out = torch.empty((b, cap, nfeat), dtype=torch.int32,
                       device=labels.device)
     packed = sum(s << (8 * i) for i, s in enumerate(shifts))
-    rc = cb.lib().k3_component_tables(
-        labels.data_ptr(), out.data_ptr(), b, h, w, cap, packed,
-        len(shifts), bits, cb.stream_of(labels))
+    with cb.on_device(labels):
+        rc = cb.lib().k3_component_tables(
+            labels.data_ptr(), out.data_ptr(), b, h, w, cap, packed,
+            len(shifts), bits, cb.stream_of(labels))
     cb.check(rc, "k3_component_tables")
     cb.LAUNCHES["component_tables"] += 1
     return out

@@ -41,10 +41,11 @@ _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "k1_conv3x3_relu_pool_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "k1_conv3x3_relu_pool_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "k2_dec1_head_bf16": [_P] * 11 + [_I, _I, _I, _P],
-    "k2_dec1_head_f32": [_P] * 11 + [_I, _I, _I, _P],
+    # (..., B, H, W, ext, stream); K2 also (top, bottom) edge flags
+    "k1_conv3x3_relu_pool_bf16": [_P] * 5 + [_I] * 4 + [_P],
+    "k1_conv3x3_relu_pool_f32": [_P] * 5 + [_I] * 4 + [_P],
+    "k2_dec1_head_bf16": [_P] * 11 + [_I] * 6 + [_P],
+    "k2_dec1_head_f32": [_P] * 11 + [_I] * 6 + [_P],
     "k3_component_tables": [_P, _P, _I, _I, _I, _I, ctypes.c_uint64, _I,
                             _I, _P],
     "k3_cluster_max_cap": [_I],
@@ -143,3 +144,11 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_device(t):
+    """Context making t's card the current one, so that a launch (and the
+    launcher's attribute calls) go to the card its stream belongs to."""
+    import torch
+
+    return torch.cuda.device(t.device)

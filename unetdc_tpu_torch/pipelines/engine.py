@@ -15,30 +15,49 @@ as they are.
 (`models/unet_int8.py`, no K1/K2), calibrated from a sidecar, an explicit
 `calibrate_int8` call or, failing both, the first batch.
 
+Under a ('data', 'space') mesh (`core/mesh.py`) the params are replicated
+once per distinct device and each batch splits over the data groups: each
+group runs the megastep on its first device, its forward through
+`models/unet_fast.py::forward_folded_spmd` (with `shard_space`, the
+forward's height splits over the group's space shards; preprocess,
+threshold, mask resize and the component tables run whole per group).
+Each distinct device is driven from its own host thread, since the
+component propagation syncs the host once per sweep; the groups' results
+are reassembled in batch order.
+
 The engine's `megastep_ms` records the card's time for each batch, from
 CUDA events around the megastep (it includes the per-sweep host syncs of
-the component propagation).
+the component propagation; under a mesh, the largest per-device sum of its
+groups' times).
 """
 
 from __future__ import annotations
 
 import os
 import sys
-from typing import Dict, List, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from unetdc_tpu_torch.core import mesh as M
 from unetdc_tpu_torch.device import resolve_device
 from unetdc_tpu_torch.models.unet import UNetDC, fold_batchnorm
 from unetdc_tpu_torch.models import unet_int8 as qi
-from unetdc_tpu_torch.models.unet_fast import build_fast_params, forward_folded
+from unetdc_tpu_torch.models.unet_fast import (build_fast_params,
+                                               forward_folded,
+                                               forward_folded_spmd)
 from unetdc_tpu_torch.ops import fused_conv
 from unetdc_tpu_torch.ops.component_tables import (component_tables,
                                                    component_tables_plain)
 from unetdc_tpu_torch.ops.connected_components import quantify_mask_batch
 from unetdc_tpu_torch.ops.resize import resize_linear_u8_cv2exact
 from unetdc_tpu_torch.ops.rolling_ball import rolling_ball_correction
+from unetdc_tpu_torch.utils.profiling import stage_timer
+
+INT8_SHARD_SPACE = ("int8 with shard_space is not ported: the int8 forward "
+                    "runs data-parallel only (ROADMAP queue A, Multi-GPU)")
 
 
 def grayscale_view(imgs_u8: np.ndarray) -> np.ndarray:
@@ -72,6 +91,11 @@ class QuantifyEngine:
         scales come from `calib_path` when that file exists, from
         `calibrate_int8`, or from the first batch the engine sees, and
         are saved to `calib_path` (when set) whenever they are calibrated.
+      mesh: an optional `core.mesh.Mesh`; the engine then runs on its
+        devices (`device` is ignored) and each batch must divide over its
+        data groups, as in the JAX engine.
+      shard_space: also split the forward's height over the mesh's space
+        axis (not with int8).
     """
 
     # subclasses set this to receive the pre-sieve component table
@@ -81,14 +105,20 @@ class QuantifyEngine:
                  compute_dtype: torch.dtype = torch.bfloat16,
                  max_labels: int = 4096, device="cuda",
                  kernels: bool = True, quantize: str | None = None,
-                 calib_path=None):
-        self.device = resolve_device(device)
+                 calib_path=None, mesh: Optional[M.Mesh] = None,
+                 shard_space: bool = False):
+        self.mesh = mesh
+        self.shard_space = shard_space
+        self.device = M.norm_device(resolve_device(
+            mesh.first if mesh is not None else device))
         self.img_size = img_size
         self.max_labels = max_labels
         self.compute_dtype = compute_dtype
         self._dilations = tuple(model_cls.dilations)
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
+        if quantize == "int8" and mesh is not None and shard_space:
+            raise ValueError(INT8_SHARD_SPACE)
         if quantize == "int8" and (self._dilations[0] != 1 or img_size % 2):
             raise ValueError("int8 path requires an undilated enc1 and an "
                              "even img_size")
@@ -104,8 +134,8 @@ class QuantifyEngine:
             if calib_path is not None and os.path.exists(calib_path):
                 self._finalize_int8(qi.load_calibration(calib_path))
         else:
-            self.params = build_fast_params(folded, compute_dtype,
-                                            self.device)
+            self._set_params(lambda d: build_fast_params(
+                folded, compute_dtype, d))
         if kernels:
             self._conv_pool = fused_conv.conv3x3_relu_pool
             self._head = fused_conv.dec1_head
@@ -115,25 +145,52 @@ class QuantifyEngine:
             self._head = fused_conv.dec1_head_plain
             self._tables = component_tables_plain
         self.megastep_ms: List[float] = []
+        self._workers: Dict[torch.device, ThreadPoolExecutor] = {}
+
+    def _set_params(self, build) -> None:
+        """`self.params` on the engine's device and, under a mesh, one
+        replica per distinct device (`self.replicas`)."""
+        if self.mesh is None:
+            self.replicas = {self.device: build(self.device)}
+        else:
+            self.replicas = M.replicate(self.mesh, build)
+        self.params = self.replicas[self.device]
 
     # ------------------------------------------------------------------
-    def forward_probs(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, S, S, 3) float in [0, 1] -> (B, S, S, 1) f32 probabilities."""
-        x = x.to(self.device)
-        if self.quantize == "int8":
+    def forward_probs(self, x: torch.Tensor,
+                      mesh: Optional[M.Mesh] = None) -> torch.Tensor:
+        """(B, S, S, 3) float in [0, 1] -> (B, S, S, 1) f32 probabilities,
+        over `mesh` (default: the engine's) when there is one."""
+        mesh = mesh or self.mesh
+        if mesh is None:
+            x = x.to(self.device)
+        if self.quantize == "int8":  # data-parallel only
             if self.params is None:
                 self.calibrate_int8(x, preprocessed=True)
-            return qi.forward_int8(self.params, x, self._dilations)
-        return forward_folded(self.params, x, self._dilations,
-                              self._conv_pool, self._head)
+            if mesh is None:
+                return qi.forward_int8(self.params, x, self._dilations)
+            if x.shape[0] % mesh.shape[M.DATA_AXIS]:
+                return qi.forward_int8(self.replicas[mesh.first],
+                                       x.to(mesh.first), self._dilations
+                                       ).to(x.device)
+            return M.gather([qi.forward_int8(self.replicas[p.device], p,
+                                             self._dilations)
+                             for p in M.split_batch(mesh, x)], 0, x.device)
+        if mesh is None:
+            return forward_folded(self.params, x, self._dilations,
+                                  self._conv_pool, self._head)
+        return forward_folded_spmd(self.replicas, x, self._dilations,
+                                   mesh=mesh, shard_space=self.shard_space,
+                                   conv_pool=self._conv_pool,
+                                   head=self._head)
 
     # ------------------------------------------------------------------
     def _finalize_int8(self, maxima: np.ndarray) -> None:
         """Quantize on the host from per-tag maxima and move the int8
-        params to the device; records `calib_maxima`."""
+        params to the device(s); records `calib_maxima`."""
         maxima = np.asarray(maxima, np.float32)
         qp = qi.build_int8_params(self._folded, maxima, self._dilations)
-        self.params = qi.prepare_int8_params(qp, self.device)
+        self._set_params(lambda d: qi.prepare_int8_params(qp, d))
         self.calib_maxima = maxima
 
     def calibrate_int8(self, batches, *, preprocessed: bool = False,
@@ -182,9 +239,12 @@ class QuantifyEngine:
     def _megastep(self, imgs_u8: torch.Tensor, prob_thresh: float,
                   min_area: int, out_hw: Tuple[int, int],
                   background_radius: int, apply_bg: bool,
-                  max_labels: int) -> Dict[str, torch.Tensor]:
+                  max_labels: int, mesh: Optional[M.Mesh] = None
+                  ) -> Dict[str, torch.Tensor]:
+        """One batch (a data group's, under a mesh: `mesh` is its row) on
+        imgs_u8's device."""
         x = self._preprocess(imgs_u8, background_radius, apply_bg)
-        probs = self.forward_probs(x)
+        probs = self.forward_probs(x, mesh)
         mask = (probs[..., 0] > prob_thresh).to(torch.uint8)
         masks = resize_linear_u8_cv2exact(mask, tuple(out_hw))
         stats = quantify_mask_batch(masks, min_area, max_labels,
@@ -198,49 +258,105 @@ class QuantifyEngine:
                        background_radius: int = 50, apply_bg: bool = True):
         """Run one megastep on (B,H,W,3) RGB or (B,H,W) grayscale uint8;
         returns a handle for `fetch_batch` (device results + what an
-        overflow re-run needs)."""
-        x = torch.from_numpy(np.ascontiguousarray(imgs_u8)).to(self.device)
+        overflow re-run needs). Under a mesh the batch must divide over
+        the data groups (ValueError otherwise, as the JAX engine's device
+        put raises)."""
+        imgs_u8 = np.ascontiguousarray(imgs_u8)
+        with stage_timer("h2d_upload"):
+            if self.mesh is None:
+                xs = [torch.from_numpy(imgs_u8).to(self.device)]
+            else:
+                M.check_batch(self.mesh, imgs_u8.shape[0])
+                xs = [torch.from_numpy(p).to(row[0]) for p, row in zip(
+                    np.split(imgs_u8, self.mesh.shape[M.DATA_AXIS]),
+                    self.mesh.grid)]
         if self.quantize == "int8" and self.params is None:
             # fallback: calibrate on the first batch (order-dependent; the
             # pipeline calibrates on a canonical sorted subset instead)
-            self.calibrate_int8(x, background_radius=background_radius,
+            self.calibrate_int8(imgs_u8, background_radius=background_radius,
                                 apply_bg=apply_bg)
-        ctx = (x, float(prob_thresh), int(min_area), int(background_radius),
+        ctx = (xs, float(prob_thresh), int(min_area), int(background_radius),
                bool(apply_bg))
         return self._run(ctx, tuple(out_hw), self.max_labels), ctx
 
     def _run(self, ctx, out_hw, max_labels):
-        x, thresh, min_area, radius, apply_bg = ctx
-        timed = self.device.type == "cuda"
-        if timed:
+        """Every data group's megastep; each distinct device's groups run
+        in order on a thread of their own (inline when there is one)."""
+        xs, thresh, min_area, radius, apply_bg = ctx
+
+        def groups(gs):
+            return [self._run_group(xs[g], None if self.mesh is None
+                                    else self.mesh.row(g), thresh, min_area,
+                                    out_hw, radius, apply_bg, max_labels)
+                    for g in gs]
+
+        by_dev: Dict[torch.device, List[int]] = {}
+        for g, x in enumerate(xs):
+            by_dev.setdefault(x.device, []).append(g)
+        if len(by_dev) == 1:
+            return groups(range(len(xs)))
+        futs = [(gs, self._worker(d).submit(groups, gs))
+                for d, gs in by_dev.items()]
+        outs = [None] * len(xs)
+        for gs, f in futs:
+            for g, o in zip(gs, f.result()):
+                outs[g] = o
+        return outs
+
+    def _worker(self, dev: torch.device) -> ThreadPoolExecutor:
+        if dev not in self._workers:
+            self._workers[dev] = ThreadPoolExecutor(1)
+        return self._workers[dev]
+
+    def close(self) -> None:
+        """Stop the per-device host threads (started only for a mesh over
+        more than one distinct device)."""
+        for w in self._workers.values():
+            w.shutdown(wait=True)
+        self._workers.clear()
+
+    def _run_group(self, x, mesh, thresh, min_area, out_hw, radius,
+                   apply_bg, max_labels):
+        if x.device.type != "cuda":
+            return self._megastep(x, thresh, min_area, out_hw, radius,
+                                  apply_bg, max_labels, mesh)
+        with torch.cuda.device(x.device):  # events and launches on x's card
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
-        out = self._megastep(x, thresh, min_area, out_hw, radius, apply_bg,
-                             max_labels)
-        if timed:
+            out = self._megastep(x, thresh, min_area, out_hw, radius,
+                                 apply_bg, max_labels, mesh)
             ev[1].record()
-            out["_events"] = ev
+        out["_events"] = (x.device, ev)
         return out
 
-    def _to_host(self, out) -> Dict[str, np.ndarray]:
-        ev = out.pop("_events", None)
-        host = {k: v.cpu().numpy() for k, v in out.items()}
-        if ev is not None:
-            ev[1].synchronize()
-            self.megastep_ms.append(ev[0].elapsed_time(ev[1]))
-        return host
+    def _to_host(self, outs) -> Dict[str, np.ndarray]:
+        per_dev: Dict[torch.device, float] = {}
+        host = []
+        for out in outs:
+            ev = out.pop("_events", None)
+            host.append({k: v.cpu().numpy() for k, v in out.items()})
+            if ev is not None:
+                dev, (a, b) = ev
+                b.synchronize()
+                per_dev[dev] = per_dev.get(dev, 0.0) + a.elapsed_time(b)
+        if per_dev:
+            self.megastep_ms.append(max(per_dev.values()))
+        if len(host) == 1:
+            return host[0]
+        return {k: np.concatenate([h[k] for h in host]) for k in host[0]}
 
     def fetch_batch(self, handle, out_hw: Tuple[int, int]
                     ) -> Dict[str, np.ndarray]:
         """Host numpy results of a dispatched batch: 'mask' (B,H,W) uint8,
         'count', 'total', 'area' and the coordinate-sum tables. A batch
-        whose component count exceeds max_labels is re-run at the next
-        doubled cap that fits (the reference's skimage path has no cap)."""
+        whose component count exceeds max_labels is re-run (over the same
+        mesh) at the next doubled cap that fits (the reference's skimage
+        path has no cap)."""
         if isinstance(handle, dict):  # already-split results: no re-run
-            out, ctx = handle, None
+            outs, ctx = [handle], None
         else:
-            out, ctx = handle
-        host = self._to_host(dict(out))
+            outs, ctx = handle
+        host = self._to_host([dict(o) for o in outs])
         total_max = int(host["total"].max())
         if total_max > self.max_labels:
             if ctx is None:
@@ -281,16 +397,18 @@ def load_state_dict(ckpt_path: str):
     return variables_to_state_dict(load_checkpoint(str(ckpt_path)))
 
 
-def load_engine(ckpt_path: str, fast: bool = True, model_cls=UNetDC,
-                max_labels: int = 4096, device="cuda",
-                kernels: bool = True, quantize: str | None = None,
-                calib_path=None) -> QuantifyEngine:
+def load_engine(ckpt_path: str, mesh: Optional[M.Mesh] = None,
+                fast: bool = True, model_cls=UNetDC, max_labels: int = 4096,
+                device="cuda", kernels: bool = True,
+                quantize: str | None = None, calib_path=None,
+                shard_space: bool = False) -> QuantifyEngine:
     """Engine from a checkpoint (`load_state_dict`), as the JAX engine's
     `load_engine`. `fast` selects bf16 (default) over f32; `quantize="int8"`
     the calibrated int8 forward with its scales loaded from / saved to the
-    `calib_path` sidecar."""
+    `calib_path` sidecar; `mesh` / `shard_space` the multi-device run."""
     return QuantifyEngine(load_state_dict(ckpt_path), model_cls=model_cls,
                           compute_dtype=torch.bfloat16 if fast
                           else torch.float32, max_labels=max_labels,
                           device=device, kernels=kernels, quantize=quantize,
-                          calib_path=calib_path)
+                          calib_path=calib_path, mesh=mesh,
+                          shard_space=shard_space)

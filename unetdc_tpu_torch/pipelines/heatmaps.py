@@ -12,7 +12,8 @@ ring (`get_targets`) and sliding-window (`density_maps`) percentage maps
 at fixed colour scales (YlOrBr vmax=35, hot vmax=15).
 
 Each engine's `heatmap_stage(imgs_u8, masks, stats, max_labels)` is the
-work after the forward, on whatever device its tensors are on. The
+work after the forward, on whatever device its tensors are on; under a
+mesh (the `mesh` argument of `QuantifyEngine`) it runs per data group. The
 engines take RGB (B,H,W,3) batches and the channel-equal (B,H,W) uploads
 of the batch pipeline alike: the gray of three equal channels is the
 channel itself (`ops/roi.py::gray_of`).
@@ -111,9 +112,10 @@ class HeatmapV1Engine(QuantifyEngine):
     _want_presieve = True
 
     def _megastep(self, imgs_u8, prob_thresh, min_area, out_hw,
-                  background_radius, apply_bg, max_labels):
+                  background_radius, apply_bg, max_labels, mesh=None):
         out = super()._megastep(imgs_u8, prob_thresh, min_area, out_hw,
-                                background_radius, apply_bg, max_labels)
+                                background_radius, apply_bg, max_labels,
+                                mesh)
         out.update(self.heatmap_stage(imgs_u8, out["mask"], out,
                                       max_labels))
         for k in _PRESIEVE:  # consumed on the device
@@ -166,9 +168,10 @@ class BlobInspectorEngine(QuantifyEngine):
         self.contour_min_size = contour_min_size
 
     def _megastep(self, imgs_u8, prob_thresh, min_area, out_hw,
-                  background_radius, apply_bg, max_labels):
+                  background_radius, apply_bg, max_labels, mesh=None):
         out = super()._megastep(imgs_u8, prob_thresh, min_area, out_hw,
-                                background_radius, apply_bg, max_labels)
+                                background_radius, apply_bg, max_labels,
+                                mesh)
         out.update(self.heatmap_stage(imgs_u8, out["mask"], out,
                                       max_labels))
         return out

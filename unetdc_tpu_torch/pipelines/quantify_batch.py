@@ -14,6 +14,10 @@ Port of the JAX package's `pipelines/quantify_batch.py`. CSV schemas and
 stdout lines stay as they are: the reference GUIs parse the CLI's stdout.
 Overlays are drawn with cv2 (external contours, simple chain, thickness 2,
 green), as the reference draws them, so the overlay PNGs match its pixels.
+
+Stage timers (`utils/profiling.py`) at the JAX package's call sites:
+host_decode, h2d_upload (in the engine), device_fetch,
+host_write_artifacts and host_csv.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from unetdc_tpu_torch.io.fastcsv import write_csv
 from unetdc_tpu_torch.io.images import (decode_rgb, encode_png_gray,
                                         encode_png_rgb)
 from unetdc_tpu_torch.pipelines.engine import QuantifyEngine, grayscale_view
+from unetdc_tpu_torch.utils.profiling import stage_timer
 
 IMG_SUFFIXES = {".png", ".jpg", ".jpeg", ".tif", ".tiff"}
 _SUM_KEYS = ("sum-0-lo", "sum-0-hi", "sum-1-lo", "sum-1-hi",
@@ -145,8 +150,10 @@ class BatchQuantifyPipeline:
     def _drain(self, one: bool = False):
         while self._inflight:
             fut, paths, n_valid, size_hw, rgbs = self._inflight.pop(0)
-            host = self.engine.fetch_batch(fut.result(), size_hw)
-            self._write_batch_outputs(host, paths, n_valid, rgbs)
+            with stage_timer("device_fetch"):
+                host = self.engine.fetch_batch(fut.result(), size_hw)
+            with stage_timer("host_write_artifacts"):
+                self._write_batch_outputs(host, paths, n_valid, rgbs)
             if one:
                 break
 
@@ -171,10 +178,11 @@ class BatchQuantifyPipeline:
                                self.mask_dir / f"{name}_pred.png", mask * 255)
             props_i = {k: out[k][i] for k in ("area",) + _SUM_KEYS
                        if k in out}
-            df = props_to_dataframe(props_i, out["count"][i],
-                                    self.px_per_micron)
-            df.insert(0, "filename", fpath.name)
-            write_csv(self.out_dir / f"{name}_droplets.csv", df)
+            with stage_timer("host_csv"):
+                df = props_to_dataframe(props_i, out["count"][i],
+                                        self.px_per_micron)
+                df.insert(0, "filename", fpath.name)
+                write_csv(self.out_dir / f"{name}_droplets.csv", df)
             self.all_props.append(df)
             self.per_image_rows.append({
                 "filename": fpath.name,
@@ -222,8 +230,13 @@ class BatchQuantifyPipeline:
                 images = tqdm(images, desc="Inference")
             except ImportError:  # pragma: no cover
                 pass
-        images_iter = Prefetcher(((p, decode_rgb(p)) for p in images),
-                                 depth=4)
+        def _decode_all():
+            for p in images:
+                with stage_timer("host_decode"):
+                    arr = decode_rgb(p)
+                yield p, arr
+
+        images_iter = Prefetcher(_decode_all(), depth=4)
         pend_imgs: List[np.ndarray] = []
         pend_paths: List[Path] = []
         pend_size: Optional[Tuple[int, int]] = None

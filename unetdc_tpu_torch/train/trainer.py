@@ -62,8 +62,8 @@ from unetdc_tpu_torch.ops.resize import (resize_linear_u8_cv2exact,
 from unetdc_tpu_torch.ops.rolling_ball import rolling_ball_correction
 
 MULTI_GPU = ("multi-GPU training (a device mesh, data parallelism, "
-             "sharding the image height) is not ported yet: ROADMAP queue A "
-             "item 10")
+             "sharding the image height) is not ported yet: ROADMAP queue A, "
+             "Multi-GPU")
 
 
 @dataclasses.dataclass
