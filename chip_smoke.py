@@ -4,7 +4,10 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Phases, each printing one JSON line:
-  1. build   — compile the CUDA kernels from `unetdc_tpu_torch/csrc`;
+  1. build   — compile the CUDA kernels from `unetdc_tpu_torch/csrc`,
+               then build (or find built, or find failed) the host
+               libraries libfastio and libalgo (`native`), so that no
+               timed phase pays for g++;
   2. inputs  — a seeded, decisive full-width UNetDC checkpoint and 16
                seeded microscopy-like PNGs (8 RGB at 512x512, 8 grayscale at
                600x800, so both size buckets and the mask resize run);
@@ -79,6 +82,37 @@ Phases, each printing one JSON line:
                on the card and on the CPU from the card's masks and
                tables: ROI, Otsu thresholds, radial_u8, target_pct,
                conv_pct and remove_small_batch equal, spatial_u8 within 1.
+  9. library — the library surface (`unetdc_tpu_torch/library.py` and the
+               ops behind it) on the card over the 16 images with the
+               decisive checkpoint: segmentation_deep_learning (bf16,
+               K1/K2: the counted `library` path), convert_to_8_bits,
+               rolling_ball at r = 25/50/100 (the 8 600x800 images),
+               label, quantify_mask_adaptive, regionprops_table,
+               centroid_size_image, distance_transform_edt,
+               peak_local_max_device, watershed_device, watershed_custom,
+               blobs_detection (LoG, DoG, DoH) and the contour and density
+               helpers, from the masks segmentation_deep_learning gave;
+               ms per call (host clock, card synchronised); each held to
+               the port on the CPU from the same inputs on images 0, 1, 8
+               and 9 (the rolling ball on image 8): equal, or within the
+               tolerance its test states; K1 and K2 at the library's own
+               shapes (batch 1, captured from one segmentation_deep_learning
+               call) held to their plain versions as in phase 4;
+               segmentation_deep_learning itself with the f32 engine (TF32
+               off) in the library's cache, card vs CPU, with the masks
+               phase's rule (every 512x512 flip within 1e-3 of the
+               threshold, at most 1e-5 of the library's mask pixels), and
+               the timed bf16 masks within 5e-2 of the f32 CPU masks.
+ 10. int8_trained — utils/int8_trained_eval.py at the JAX package's
+               defaults (128 images at 256x256, 10 epochs, 16 held out):
+               int8 vs bf16 mask agreement (mean, min), count match rate,
+               mean |count difference|, val dice, wall seconds; its own
+               launch counts (the `int8_trained` path: K1, K2, K3), and
+               each kernel's inputs at 256x256 held to the plain version.
+ 11. native_io — native_available(), libfastio vs PIL decode (PNG, JPEG
+               q90) and mask-encode host ms on a 600x800 image, and
+               equality with PIL's decode (JPEG within 2 levels).
+Every line of phases 9-11 carries the card's name and power limit.
 Then the `kernels` line (with each kernel's launches on every path), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: the script exits
@@ -108,6 +142,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 BATCH = 8
 PX_PER_UM = 3.45
+DECISIVE_SCALE = 300.0  # the decisive checkpoint's head scale
 
 
 def emit(obj) -> None:
@@ -120,7 +155,8 @@ def check(cond, what: str) -> None:
 
 
 # --------------------------------------------------------------- inputs --
-def make_decisive_checkpoint(path, seed: int = 0, out_scale: float = 300.0,
+def make_decisive_checkpoint(path, seed: int = 0,
+                             out_scale: float = DECISIVE_SCALE,
                              img_size: int = 512, device="cuda"):
     """The port's copy of tests/torch_reference.py::make_decisive_checkpoint:
     a random UNetDC whose logits are centred on their median over a probe
@@ -285,6 +321,116 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def hold_k1(x, w, b, where: str) -> float:
+    """K1 held to its plain version on (x, w, b): bf16 within 1e-2
+    (atol and rtol), f32 within 2e-5 / 1e-5; its max abs error."""
+    import torch
+
+    from unetdc_tpu_torch.ops import fused_conv as fc
+
+    y, p = fc.conv3x3_relu_pool(x, w, b)
+    yr, pr = fc.conv3x3_relu_pool_plain(x, w, b)
+    atol, rtol = (1e-2, 1e-2) if x.dtype == torch.bfloat16 else (2e-5, 1e-5)
+    err = max(float((y.float() - yr.float()).abs().max()),
+              float((p.float() - pr.float()).abs().max()))
+    check(torch.allclose(y.float(), yr.float(), atol=atol, rtol=rtol)
+          and torch.allclose(p.float(), pr.float(), atol=atol, rtol=rtol),
+          f"{where}: K1 {x.dtype} at {tuple(x.shape)} disagrees with its "
+          f"plain version (max err {err})")
+    return err
+
+
+def hold_k2(dec2, enc1, head, head_scale: float, where: str):
+    """K2 held to its plain version: (max abs error, 0.3-mask flip share,
+    max abs error with the head at the model's own scale).
+
+    A checkpoint may scale the 1x1 head (the decisive one by 300), so a
+    one-ulp bf16 difference in d1 (f32 sums taken in another order) moves
+    a probability near 0.5 by several hundredths. Held here: the 0.3
+    masks the pipeline takes from it (< 1e-3 of pixels flip), and
+    |dprob| < 0.05 with the head at the model's own scale (weights and
+    bias / head_scale) on the same activations."""
+    from unetdc_tpu_torch.ops import fused_conv as fc
+
+    o = fc.dec1_head(dec2, enc1, head)
+    orf = fc.dec1_head_plain(dec2, enc1, head)
+    err = float((o - orf).abs().max())
+    flips = float(((o > 0.3) != (orf > 0.3)).float().mean())
+    at = f"{where}: K2 at {tuple(dec2.shape)}"
+    check(flips < 1e-3, f"{at}: 0.3-mask mismatch {flips}")
+    own = dict(head, w_oc=head["w_oc"] / head_scale,
+               b_oc=head["b_oc"] / head_scale)
+    err_own = float((fc.dec1_head(dec2, enc1, own)
+                     - fc.dec1_head_plain(dec2, enc1, own)).abs().max())
+    check(err_own < 0.05, f"{at}: |dprob| {err_own} >= 0.05")
+    return err, flips, err_own
+
+
+@contextlib.contextmanager
+def capturing(engines=()):
+    """Yield {"K1"|"K2"|"K3": {shapes: (args, kwargs)}}, filled with the
+    inputs (cloned) of the first card call of each kernel at each shape,
+    while every call goes on to the kernel's wrapper (which counts it).
+    Covers engines built inside the block and the given `engines`."""
+    import torch
+
+    from unetdc_tpu_torch.ops import fused_conv as fc
+    from unetdc_tpu_torch.pipelines import engine as E
+
+    seen = {"K1": {}, "K2": {}, "K3": {}}
+
+    def rec(key, fn):
+        def call(*a, **k):
+            shapes = tuple(tuple(t.shape) for t in a if torch.is_tensor(t))
+            if a[0].is_cuda and shapes not in seen[key]:
+                seen[key][shapes] = ([t.clone() if torch.is_tensor(t) else t
+                                      for t in a], dict(k))
+            return fn(*a, **k)
+        return call
+
+    spots = [(fc, "conv3x3_relu_pool", "K1"), (fc, "dec1_head", "K2"),
+             (E, "component_tables", "K3")]
+    spots += [(e, a, k) for e in engines for a, k in
+              (("_conv_pool", "K1"), ("_head", "K2"), ("_tables", "K3"))]
+    saved = [(o, a, getattr(o, a)) for o, a, _ in spots]
+    try:
+        for o, a, k in spots:
+            setattr(o, a, rec(k, getattr(o, a)))
+        yield seen
+    finally:
+        for o, a, fn in saved:
+            setattr(o, a, fn)
+
+
+def hold_captured(seen, head_scale: float, where: str):
+    """Every captured K1, K2 and K3 call held to its plain version (K1/K2
+    as `hold_k1`/`hold_k2`, K3 equal); one row per kernel and shape."""
+    import torch
+
+    from unetdc_tpu_torch.ops.component_tables import (
+        component_tables, component_tables_plain)
+
+    rows = []
+    for (a, k) in seen["K1"].values():
+        rows.append({"kernel": "K1", "x": list(a[0].shape),
+                     "dtype": str(a[0].dtype),
+                     "max_abs_err": hold_k1(*a, where)})
+    for (a, k) in seen["K2"].values():
+        err, flips, err_own = hold_k2(*a, head_scale, where)
+        rows.append({"kernel": "K2", "dec2": list(a[0].shape),
+                     "dtype": str(a[0].dtype), "max_abs_err": err,
+                     "mask_flip_share": flips,
+                     "max_abs_err_own_head_scale": err_own})
+    for (a, k) in seen["K3"].values():
+        ok = torch.equal(component_tables(*a, **k),
+                         component_tables_plain(*a, **k))
+        check(ok, f"{where}: K3 at {tuple(a[0].shape)} disagrees with its "
+                  "plain version")
+        rows.append({"kernel": "K3", "labels": list(a[0].shape),
+                     "cap": k.get("cap"), "equal": ok})
+    return rows
+
+
 def kernel_rows(engine, img_dir, out_dir, launches):
     """Capture each kernel's inputs on the main path's shapes, hold the
     kernel against its plain version, and time kernel, plain and library."""
@@ -333,19 +479,8 @@ def kernel_rows(engine, img_dir, out_dir, launches):
     x1, w1, b1 = seen["k1"]
     B, H, W, C = x1.shape
     y, p = fc.conv3x3_relu_pool(x1, w1, b1)
-    yr, pr = fc.conv3x3_relu_pool_plain(x1, w1, b1)
-    err = max(float((y.float() - yr.float()).abs().max()),
-              float((p.float() - pr.float()).abs().max()))
-    check(torch.allclose(y.float(), yr.float(), atol=1e-2, rtol=1e-2)
-          and torch.allclose(p.float(), pr.float(), atol=1e-2, rtol=1e-2),
-          f"K1 bf16 disagrees with its plain version (max err {err})")
-    xf, wf = x1.float(), w1.float()
-    yf, pf = fc.conv3x3_relu_pool(xf, wf, b1)
-    yrf, prf = fc.conv3x3_relu_pool_plain(xf, wf, b1)
-    err32 = float((yf - yrf).abs().max())
-    check(torch.allclose(yf, yrf, atol=2e-5, rtol=1e-5)
-          and torch.allclose(pf, prf, atol=2e-5, rtol=1e-5),
-          f"K1 f32 disagrees with its plain version (max err {err32})")
+    err = hold_k1(x1, w1, b1, "cli")
+    err32 = hold_k1(x1.float(), w1.float(), b1, "cli")
     xn = x1.permute(0, 3, 1, 2)
     wn = w1.permute(3, 2, 0, 1).contiguous()
     bn = b1.to(x1.dtype)
@@ -368,20 +503,10 @@ def kernel_rows(engine, img_dir, out_dir, launches):
     # K2 ---------------------------------------------------------------
     dec2, enc1, head = seen["k2"]
     o = fc.dec1_head(dec2, enc1, head)
-    orf = fc.dec1_head_plain(dec2, enc1, head)
-    err = float((o - orf).abs().max())
-    # The decisive checkpoint scales the 1x1 head by 300, so a one-ulp bf16
-    # difference in d1 (f32 sums taken in another order) moves a
-    # probability near 0.5 by several hundredths. Held here: the 0.3 masks
-    # the pipeline takes from it, and |dprob| < 0.05 with the head at the
-    # model's own scale (weights and bias / 300) on the same activations.
-    flips = float(((o > 0.3) != (orf > 0.3)).float().mean())
-    check(flips < 1e-3, f"K2 bf16 0.3-mask mismatch {flips}")
-    unscaled = dict(head, w_oc=head["w_oc"] / 300, b_oc=head["b_oc"] / 300)
-    err_unscaled = float((fc.dec1_head(dec2, enc1, unscaled)
-                          - fc.dec1_head_plain(dec2, enc1, unscaled)
-                          ).abs().max())
-    check(err_unscaled < 0.05, f"K2 bf16 |dprob| {err_unscaled} >= 0.05")
+    err, flips, err_unscaled = hold_k2(dec2, enc1, head, DECISIVE_SCALE,
+                                       "cli")
+    unscaled = dict(head, w_oc=head["w_oc"] / DECISIVE_SCALE,
+                    b_oc=head["b_oc"] / DECISIVE_SCALE)
     h32 = {k: (v.float() if v.dtype == torch.bfloat16 else v)
            for k, v in unscaled.items()}
     o32 = fc.dec1_head(dec2.float(), enc1.float(), h32)
@@ -512,7 +637,8 @@ def ext_kernel_rows(seen):
         shapes=f"x {tuple(s0.shape)} bf16 (top shard of 2)"))
 
     dec2, enc1, head = seen["k2"]
-    unscaled = dict(head, w_oc=head["w_oc"] / 300, b_oc=head["b_oc"] / 300)
+    unscaled = dict(head, w_oc=head["w_oc"] / DECISIVE_SCALE,
+                    b_oc=head["b_oc"] / DECISIVE_SCALE)
     h32 = {k: (v.float() if v.dtype == torch.bfloat16 else v)
            for k, v in unscaled.items()}
     for d, e, hd in ((dec2, enc1, head), (dec2.float(), enc1.float(), h32)):
@@ -1486,6 +1612,390 @@ def heatmaps_phase(img_dir: Path, ckpt: Path, cb):
     return out
 
 
+# -------------------------------------------------------------- library --
+LIB_RADII = (25, 50, 100)
+LIB_HELD = (0, 1, 8, 9)  # the CPU holds 2 RGB 512x512, 2 gray 600x800
+
+
+def card_label() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def host_ms(fn):
+    """(result, ms) of one fn() on the host clock, the card synchronised
+    before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def same(a, b, rtol: float = 0.0) -> bool:
+    """Equality of nested results (arrays, lists, tuples, dicts); float
+    arrays within rtol when it is not 0."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same(a[k], b[k], rtol)
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same(x, y, rtol)
+                                        for x, y in zip(a, b))
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        return False
+    if rtol and a.dtype.kind == "f":
+        return bool(np.allclose(a, b, rtol=rtol, atol=0.0))
+    return bool(np.array_equal(a, b))
+
+
+def library_functions(imgs, ckpt: str, device: str, masks=None):
+    """The library surface on `device`, as a list of (name, fn(i) -> host
+    result, image indices, rtol): rtol 0 asks for equality; a float
+    result is held at its test's tolerance (tests/test_torch_library.py,
+    tests/test_torch_edt_watershed.py, tests/test_torch_blobs.py). Each fn
+    reads the outputs of those before it through `state`. With `masks`
+    (another device's segmentation_deep_learning outputs), the functions
+    that take a mask take those instead of this device's."""
+    import numpy as np
+    import torch
+    from scipy import ndimage as ndi
+
+    from unetdc_tpu_torch import library as L
+    from unetdc_tpu_torch.ops import connected_components as CC
+    from unetdc_tpu_torch.ops import edt as E
+    from unetdc_tpu_torch.ops import regionprops as R
+
+    dev = torch.device(device)
+    n = len(imgs)
+    state = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def host(d):
+        return {k: v.cpu().numpy() for k, v in d.items()}
+
+    def seg(i):
+        out = masks[i] if masks is not None else \
+            L.segmentation_deep_learning(imgs[i], ckpt, device=device)
+        state.setdefault("fg", {})[i] = out > 0
+        return out
+
+    def gray(i):
+        out = L.convert_to_8_bits(imgs[i])
+        state.setdefault("gray", {})[i] = out
+        return out
+
+    def fg(i):
+        return state["fg"][i]
+
+    def label(i):
+        lab, k = CC.label(t(fg(i)), 1)
+        state.setdefault("lab", {})[i] = (lab, int(k))
+        return lab.cpu().numpy(), int(k)
+
+    def props(i):
+        lab, k = state["lab"][i]
+        return host(R.regionprops_table(lab, max(k, 1)))
+
+    def csi(i):
+        lab, k = state["lab"][i]
+        out = R.centroid_size_image(lab, max(k, 1)).cpu().numpy()
+        state.setdefault("csi", {})[i] = out
+        return out
+
+    def edt(i):
+        out = E.distance_transform_edt(t(fg(i)))
+        state.setdefault("edt", {})[i] = out
+        return out.cpu().numpy()
+
+    def peaks(i):
+        c, v = E.peak_local_max_device(state["edt"][i], t(fg(i)), 3, 1024)
+        c, v = c.cpu().numpy(), v.cpu().numpy()
+        state.setdefault("peaks", {})[i] = c[v]
+        return c, v
+
+    def ws_device(i):
+        d2 = E.distance_transform_edt_sq(t(fg(i)))
+        pk = np.zeros(fg(i).shape, bool)
+        pk[tuple(state["peaks"][i].T)] = True
+        markers = t(ndi.label(pk)[0].astype(np.int32))
+        height = (d2.max() - d2).to(torch.int32)
+        return E.watershed_device(height, markers, t(fg(i))).cpu().numpy()
+
+    def ws_custom(i):
+        dots, labels = L.watershed_custom(
+            fg(i), L.binary_to_dots(fg(i))[::7], device=device)
+        return np.asarray(dots), np.asarray(labels)
+
+    def contour(i):
+        out = L.contour_scan(state["gray"][i], 30, device=device)
+        state.setdefault("contour", {})[i] = out
+        return out
+
+    def contour_others(i):
+        g = state["gray"][i]
+        return [getattr(L, f)(g, 30, device=device) for f in (
+            "contour_spreading_4", "contour_spreading_8",
+            "contour_shrinking_box")] + [
+            L.remove_objects(state["contour"][i], 20, device=device)]
+
+    def density(i):
+        c, m, s = state["contour"][i], fg(i), state["csi"][i]
+        cy, cx = L.calculate_contours_centroid(c, device=device)
+        return ([cy, cx], L.density_map(m, c, 55, device=device),
+                L.density_maps(m, c, s, 55, device=device),
+                L.get_target(m, c, 3, cy, cx, device=device),
+                L.get_targets(m, c, s, 3, cy, cx, device=device))
+
+    def blobs(algo):
+        def fn(i):
+            x = state["gray"][i].astype(np.float32) / 255.0
+            return L.blobs_detection(x, algo, 3, 12, device=device)
+        return fn
+
+    every, gray_only = range(n), range(n // 2, n)
+    fns = [("segmentation_deep_learning", seg, every, 0.0),
+           ("convert_to_8_bits", gray, every, 0.0)]
+    for r in LIB_RADII:
+        fns.append((f"rolling_ball_r{r}",
+                    lambda i, r=r: L.rolling_ball(state["gray"][i], r,
+                                                  device=device),
+                    gray_only, 0.0))
+    fns += [("label", label, every, 0.0),
+            ("quantify_mask_adaptive",
+             lambda i: host(CC.quantify_mask_adaptive(t(fg(i)), 1)),
+             every, 0.0),
+            ("regionprops_table", props, every, 1e-6),
+            ("centroid_size_image", csi, every, 0.0),
+            ("distance_transform_edt", edt, every, 0.0),
+            ("peak_local_max_device", peaks, every, 0.0),
+            ("watershed_device", ws_device, every, 0.0),
+            ("watershed_custom", ws_custom, every, 0.0),
+            ("blobs_detection_log", blobs(1), every, 0.0),
+            ("blobs_detection_dog", blobs(2), every, 0.0),
+            ("blobs_detection_doh", blobs(3), every, 0.0),
+            ("contour_scan", contour, every, 0.0),
+            ("contours_and_remove_objects", contour_others, every, 0.0),
+            ("density_helpers", density, every, 1e-6)]
+    return fns
+
+
+def library_phase(img_dir: Path, ckpt: Path, cb, card: str):
+    """The library surface on the card at realistic size, each function
+    held to the port on the CPU (see the docstring)."""
+    import numpy as np
+    import torch
+
+    from unetdc_tpu_torch import library as L
+    from unetdc_tpu_torch.io.native import decode_rgb
+    from unetdc_tpu_torch.pipelines.engine import load_engine
+
+    t0 = time.perf_counter()
+    imgs = [decode_rgb(p) for p in sorted(Path(img_dir).glob("*.png"))]
+    imgs = imgs[:BATCH] + [i[..., 0] for i in imgs[BATCH:]]  # gray 2D
+    card_fns = library_functions(imgs, str(ckpt), "cuda")
+    r = {"phase": "library", "card": card, "images": len(imgs),
+         "sizes": ["512x512 rgb", "600x800 gray"], "ms_per_call": {},
+         "failed": []}
+    card_out = {}
+    with torch.no_grad():
+        for name, fn, idx, _ in card_fns:      # first-call costs
+            for i in (0, BATCH):
+                if i in idx:
+                    fn(i)
+        torch.cuda.synchronize()
+        cb.reset_launches()
+        for name, fn, idx, _ in card_fns:
+            outs = {}
+            times = []
+            for i in idx:
+                outs[i], ms = host_ms(lambda: fn(i))
+                times.append(ms)
+            card_out[name] = outs
+            r["ms_per_call"][name] = statistics.median(times)
+            print(f"library: {name} {r['ms_per_call'][name]:.3f} ms/call",
+                  file=sys.stderr, flush=True)
+        torch.cuda.synchronize()
+    r["launches"] = dict(cb.LAUNCHES)
+    for k in ("conv3x3_relu_pool", "dec1_head"):
+        check(r["launches"].get(k, 0) >= 1, f"library: {k} never launched")
+
+    # the same functions on the CPU: the held images (one per radius for
+    # the rolling ball, ~26 s a 600x800 image at r = 100 on the CPU)
+    # from the card's masks: the bf16 segmentation itself is held below
+    t1 = time.perf_counter()
+    cpu_fns = library_functions(imgs, str(ckpt), "cpu",
+                                masks=card_out["segmentation_deep_learning"])
+    held = {}
+    for name, fn, idx, rtol in cpu_fns:
+        want = [i for i in LIB_HELD if i in idx]
+        if name.startswith("rolling_ball"):
+            want = want[:1]
+        ok = all([same(card_out[name][i], fn(i), rtol) for i in want])
+        if name == "segmentation_deep_learning":
+            continue
+        print(f"library: {name} held on the CPU: {ok}", file=sys.stderr,
+              flush=True)
+        held[name] = {"images": want, "equal" if not rtol else
+                      f"within_rtol_{rtol:g}": ok}
+        if not ok:
+            r["failed"].append(name)
+    r["held_on_cpu"] = held
+    r["cpu_seconds"] = time.perf_counter() - t1
+
+    # K1 and K2 at the library's own shapes (batch 1): their inputs from
+    # one segmentation_deep_learning call, held to the plain versions
+    key = (str(ckpt), "cuda")
+    with capturing(engines=[L._MODEL_CACHE[key]]) as seen:
+        L.segmentation_deep_learning(imgs[0], str(ckpt), device="cuda")
+    check(seen["K1"] and seen["K2"], "library: K1/K2 inputs not captured")
+    r["kernels_held_to_plain"] = hold_captured(seen, DECISIVE_SCALE,
+                                               "library")
+    del seen
+
+    # segmentation_deep_learning itself with the f32 engine (TF32 off) in
+    # the library's cache, on the card and on the CPU: the card's
+    # convolutions sum in another order, so a pixel whose probability
+    # sits within 1e-3 of the threshold may flip (the masks phase's rule);
+    # every flip must be such a pixel, and at most 1e-5 of the library's
+    # mask pixels (resized on each device) may differ. The bf16 masks the
+    # timed run gave are held to the f32 CPU masks with the masks phase's
+    # sanity bound (5e-2).
+    bf16_engine = L._MODEL_CACHE[key]
+    mis = far = pix = masks_mis = masks_pix = bf_mis = 0
+    for d in ("cuda", "cpu"):
+        L._MODEL_CACHE[(str(ckpt), d)] = load_engine(str(ckpt), fast=False,
+                                                     device=d)
+    try:
+        for i in LIB_HELD:
+            pg, pc = (L._segmentation_probs(L._MODEL_CACHE[(str(ckpt), d)],
+                                            imgs[i], torch.device(d))
+                      .cpu().numpy() for d in ("cuda", "cpu"))
+            flip = (pg > 0.3) != (pc > 0.3)
+            mis += int(flip.sum())
+            far += int((flip & (np.abs(pc - 0.3) >= 1e-3)).sum())
+            pix += flip.size
+            mg, mc = (L.segmentation_deep_learning(imgs[i], str(ckpt),
+                                                   device=d)
+                      for d in ("cuda", "cpu"))
+            masks_mis += int((mg != mc).sum())
+            masks_pix += mg.size
+            bf_mis += int((card_out["segmentation_deep_learning"][i]
+                           != mc).sum())
+    finally:
+        L._MODEL_CACHE.pop((str(ckpt), "cpu"))
+        L._MODEL_CACHE[key] = bf16_engine
+    r["segmentation_f32_card_vs_cpu"] = {
+        "images": list(LIB_HELD), "flips_512": mis,
+        "flips_not_near_threshold": far, "flip_fraction": mis / pix,
+        "mask_pixels_differ": masks_mis,
+        "mask_mismatch": masks_mis / masks_pix}
+    r["segmentation_bf16_card_vs_f32_cpu"] = {
+        "images": list(LIB_HELD), "mask_mismatch": bf_mis / masks_pix}
+    if far or mis / pix > 1e-5 or masks_mis / masks_pix > 1e-5 \
+            or bf_mis / masks_pix >= 5e-2:
+        r["failed"].append("segmentation_deep_learning")
+    fg = [card_out["segmentation_deep_learning"][i] > 0
+          for i in range(len(imgs))]
+    r["mask_fraction"] = float(np.mean([m.mean() for m in fg]))
+    r["droplets_label"] = int(sum(card_out["label"][i][1]
+                                  for i in range(len(imgs))))
+    r["blobs"] = {a: int(sum(len(b) for b in
+                             card_out[f"blobs_detection_{a}"].values()))
+                  for a in ("log", "dog", "doh")}
+    r["seconds"] = time.perf_counter() - t0
+    return r
+
+
+# --------------------------------------------------------- int8_trained --
+def int8_trained_phase(card: str, cb):
+    """The trained-checkpoint int8 contract at the JAX package's defaults:
+    128 synthetic 256x256 droplet images, 10 epochs (bf16), 16 held-out
+    images through the bf16 and the int8 engines. The launch counts are
+    zeroed just before and read just after (the `int8_trained` path); the
+    bf16 engine's K1, K2 and K3 inputs at 256x256 (and the int8 engine's
+    K3 inputs) are captured and held to the plain versions."""
+    from unetdc_tpu_torch.utils.int8_trained_eval import train_and_eval_int8
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    cb.reset_launches()
+    with contextlib.redirect_stdout(buf), capturing() as seen:
+        out = train_and_eval_int8(device="cuda")
+    launches = dict(cb.LAUNCHES)
+    wall = time.perf_counter() - t0
+    check(out["trained_val_dice"] > 0.5,
+          f"int8_trained: training did not take ({out})")
+    check(0.0 <= out["int8_trained_agreement_min"]
+          <= out["int8_trained_agreement"] <= 1.0,
+          f"int8_trained: agreement out of range ({out})")
+    for k in ("conv3x3_relu_pool", "dec1_head", "component_tables"):
+        check(launches.get(k, 0) >= 1, f"int8_trained: {k} never launched")
+    held = hold_captured(seen, 1.0, "int8_trained")
+    return {"phase": "int8_trained", "card": card, "images": 128,
+            "size": "256x256", "epochs": 10, "held_out": 16, **out,
+            "wall_s": wall, "launches": launches,
+            "kernels_held_to_plain": held}
+
+
+# ------------------------------------------------------------ native_io --
+def native_io_phase(work: Path, img_dir: Path, card: str):
+    """libfastio against PIL on a 600x800 image: decode (PNG, JPEG q90)
+    and mask encode, host ms per call (median of 20) and equality."""
+    import numpy as np
+    from PIL import Image
+
+    from unetdc_tpu_torch.io import images as pil
+    from unetdc_tpu_torch.io import native as N
+
+    d = work / "native_io"
+    d.mkdir()
+    src = pil.decode_rgb(sorted(Path(img_dir).glob("*.png"))[BATCH])
+    src[..., 1] = np.roll(src[..., 1], 7, axis=1)  # a true RGB image
+    png, jpg = d / "a.png", d / "a.jpg"
+    Image.fromarray(src).save(png)
+    Image.fromarray(src).save(jpg, quality=90)
+    mask = ((src[..., 0] > 100) * 255).astype(np.uint8)
+    r = {"phase": "native_io", "card": card,
+         "native_available": N.native_available(),
+         "shape": list(src.shape[:2]), "host_ms": {}}
+
+    def ms(fn):
+        fn()
+        times = []
+        for _ in range(20):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    for name, p in (("png", png), ("jpeg_q90", jpg)):
+        a, b = N.decode_rgb(p), pil.decode_rgb(p)
+        r["host_ms"][f"{name}_decode"] = ms(lambda: N.decode_rgb(p))
+        r["host_ms"][f"{name}_decode_pil"] = ms(lambda: pil.decode_rgb(p))
+        r[f"{name}_equal_pil"] = bool(np.array_equal(a, b))
+        r[f"{name}_max_diff_pil"] = int(np.abs(a.astype(int) - b).max())
+    for name, fn in (("mask_png_encode", N.encode_png_gray),
+                     ("mask_png_encode_pil", pil.encode_png_gray)):
+        out = d / f"{name}.png"
+        r["host_ms"][name] = ms(lambda: fn(out, mask))
+        check(np.array_equal(np.array(Image.open(out)), mask),
+              f"native_io: {name} does not decode back to its input")
+    check(r["png_equal_pil"], "native_io: PNG decode differs from PIL's")
+    check(r["jpeg_q90_max_diff_pil"] <= 2,
+          "native_io: JPEG decode more than 2 levels from PIL's")
+    return r
+
+
 def main() -> int:
     import torch
 
@@ -1506,8 +2016,17 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = cb.build()
     cb.lib()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": str(lib.relative_to(ROOT))})
+    seconds = time.perf_counter() - t0
+    # the host libraries (libfastio, libalgo) are built or found failed
+    # here, so no timed run below pays for the compiler
+    from unetdc_tpu_torch.io import native as N
+    from unetdc_tpu_torch.ops import watershed as W
+    t0 = time.perf_counter()
+    native = {"fastio": N.native_available(),
+              "algo": W._load_algo() is not None,
+              "seconds": time.perf_counter() - t0}
+    emit({"phase": "build", "seconds": seconds,
+          "library": str(lib.relative_to(ROOT)), "native": native})
 
     work = Path(tempfile.mkdtemp(prefix="unetdc_smoke_"))
     try:
@@ -1612,13 +2131,22 @@ def main() -> int:
         emit(int8)
         heat = heatmaps_phase(img_dir, ckpt, cb)
         emit(heat)
+        card = card_label()
+        lib = library_phase(img_dir, ckpt, cb, card)
+        emit(lib)
+        check(not lib["failed"], f"library: {lib['failed']}")
+        i8t = int8_trained_phase(card, cb)
+        emit(i8t)
+        emit(native_io_phase(work, img_dir, card))
         paths = {"cli": launches,
                  "train_quantify": train["quantified_trained_msgpack"][
                      "launches"],
                  "int8_cli": int8["launches"],
                  "heatmap_v1": heat["heatmap_v1"]["launches"],
                  "blobinspector": heat["blobinspector"]["launches"],
-                 "sharded": sharded["launches"]}
+                 "sharded": sharded["launches"],
+                 "library": lib["launches"],
+                 "int8_trained": i8t["launches"]}
         keys = {"K1": "conv3x3_relu_pool", "K2": "dec1_head",
                 "K3": "component_tables",
                 "K1_ext": "conv3x3_relu_pool_ext", "K2_ext": "dec1_head_ext"}
@@ -1631,10 +2159,7 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_label(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

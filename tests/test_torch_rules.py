@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -30,14 +31,16 @@ bad = sorted(m for m in sys.modules
                                     "unetdc_tpu", "sklearn", "msgpack"))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 37, names
+assert len(names) >= 59, names
 for n in ("losses", "data.augment", "data.dataset", "train.trainer",
           "train.test_phase", "utils.summary", "cli.train",
           "cli.train_dc_focal", "checkpoint.native", "ops.diffmap",
           "ops.filters", "models.unet_int8", "ops.threshold", "ops.roi",
           "ops.density", "ops.contours", "pipelines.heatmaps",
           "cli.quantify_pipline", "cli.quantify", "core.mesh",
-          "utils.profiling"):
+          "utils.profiling", "library", "io.native", "ops.bitdepth",
+          "ops.blobs", "ops.edt", "ops.watershed", "ops.regionprops",
+          "utils.int8_trained_eval", "utils.native_build"):
     assert "unetdc_tpu_torch." + n in names, n
 """
     r = subprocess.run([sys.executable, "-c", code.format(
@@ -278,3 +281,152 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         cb.build()
     assert len(cb.source_hash()) == 16
+
+
+LIBRARY_CALLS = [
+    ("segmentation_deep_learning", lambda L, ck, **k:
+     L.segmentation_deep_learning(np.zeros((8, 8), np.uint8), ck, **k)),
+    ("rolling_ball", lambda L, ck, **k:
+     L.rolling_ball(np.zeros((8, 8), np.float32), 2, **k)),
+    ("blobs_detection", lambda L, ck, **k:
+     L.blobs_detection(np.zeros((24, 24), np.float32), 1, 2, 3, **k)),
+    ("watershed_custom", lambda L, ck, **k:
+     L.watershed_custom(np.pad(np.ones((66, 66), bool), 2), [[9, 9]],
+                        **k)),
+    ("labeling_custom", lambda L, ck, **k:
+     L.labeling_custom(np.ones((8, 8), bool), [[1, 1]], **k)),
+    ("remove_objects", lambda L, ck, **k:
+     L.remove_objects(np.ones((8, 8), bool), 2, **k)),
+    ("contour_scan", lambda L, ck, **k:
+     L.contour_scan(np.ones((8, 8), np.float32), 0.5, **k)),
+    ("density_map", lambda L, ck, **k:
+     L.density_map(np.ones((8, 8), bool), np.ones((8, 8), bool), 3, **k)),
+]
+
+
+@pytest.mark.parametrize("name,call", LIBRARY_CALLS,
+                         ids=[n for n, _ in LIBRARY_CALLS])
+def test_library_entry_points_default_to_cuda(monkeypatch, tmp_path, name,
+                                              call):
+    """Library functions keep the reference's positional signature, take
+    a keyword-only device defaulting to "cuda", raise without a card and
+    run with device="cpu"."""
+    import inspect
+
+    import numpy as np  # noqa: F811
+
+    from tests.torch_reference import make_decisive_checkpoint
+    from unetdc_tpu_torch import library as L
+
+    param = inspect.signature(getattr(L, name)).parameters["device"]
+    assert param.kind is inspect.Parameter.KEYWORD_ONLY
+    assert param.default == "cuda"
+    ckpt = None
+    if name == "segmentation_deep_learning":
+        ckpt = str(tmp_path / "m.pth")
+        make_decisive_checkpoint(ckpt, seed=1, img_size=32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call(L, ckpt)
+    if name != "segmentation_deep_learning":  # full width at 512: slow
+        call(L, ckpt, device="cpu")
+
+
+def _tree(d: Path) -> dict:
+    return {p.relative_to(d): p.stat().st_mtime_ns for p in d.rglob("*")}
+
+
+def test_native_libraries_build_outside_native(monkeypatch, tmp_path):
+    """io/native and ops/watershed build their libraries from the tracked
+    sources into unetdc_tpu_torch/_build/native/ (here a temporary one)
+    and never write into native/: libfastio always (its .so is not
+    tracked), libalgo when the tracked .so does not load."""
+    from scipy import ndimage
+
+    from unetdc_tpu_torch.io import native as N
+    from unetdc_tpu_torch.ops import watershed as W
+    from unetdc_tpu_torch.utils import native_build as NB
+
+    before = _tree(NB.NATIVE_DIR)
+    monkeypatch.setattr(NB, "BUILD_DIR", tmp_path / "native")
+    N._load.cache_clear()
+    W._load_algo.cache_clear()
+    real_load = NB.load
+    monkeypatch.setattr(NB, "load", lambda name, libs=(), prebuilt=None:
+                        real_load(name, libs, prebuilt=None))
+    try:
+        assert N.native_available()
+        assert W._load_algo() is not None
+        built = sorted(p.name for p in (tmp_path / "native").iterdir())
+        assert [n.split("-")[0] for n in built] == ["libalgo", "libfastio"]
+        assert all(n.endswith(".so") for n in built)
+        m = np.zeros((30, 30), bool)
+        m[5:25, 5:12] = m[5:25, 15:25] = True
+        h = -ndimage.distance_transform_edt(m)
+        mk = np.zeros((30, 30), np.int32)
+        mk[15, 8], mk[15, 20] = 1, 2
+        np.testing.assert_array_equal(W.watershed(h, mk, m),
+                                      W.watershed_python(h, mk, m))
+    finally:
+        N._load.cache_clear()
+        W._load_algo.cache_clear()
+    assert _tree(NB.NATIVE_DIR) == before
+
+
+def _fake_native(monkeypatch, tmp_path, sources):
+    """native_build pointed at tmp sources and a tmp build directory, with
+    a count of the compiler runs."""
+    import subprocess
+
+    from unetdc_tpu_torch.utils import native_build as NB
+
+    src = tmp_path / "src"
+    src.mkdir()
+    for name, text in sources.items():
+        (src / f"{name}.cpp").write_text(text)
+    monkeypatch.setattr(NB, "NATIVE_DIR", src)
+    monkeypatch.setattr(NB, "BUILD_DIR", tmp_path / "build")
+    runs = []
+    real_run = subprocess.run
+
+    def run(*a, **k):
+        runs.append(a[0])
+        return real_run(*a, **k)
+
+    monkeypatch.setattr(NB.subprocess, "run", run)
+    return NB, runs
+
+
+def test_native_build_failure_is_remembered(monkeypatch, tmp_path):
+    """A source that does not compile leaves a `.failed` marker; the next
+    load (another process, here a fresh call) returns None without
+    running the compiler again."""
+    NB, runs = _fake_native(monkeypatch, tmp_path,
+                            {"broken": "this is not C++\n"})
+    assert NB.load("broken") is None
+    assert len(runs) == 1
+    files = sorted(p.name for p in (tmp_path / "build").iterdir())
+    assert len(files) == 1 and files[0].endswith(".failed")
+    assert NB.load("broken") is None
+    assert len(runs) == 1
+
+
+def test_native_build_concurrent_threads(monkeypatch, tmp_path):
+    """Threads that load one library at once get it built once, each a
+    working handle, and leave no temporary file behind."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    NB, runs = _fake_native(monkeypatch, tmp_path, {
+        "tiny": 'extern "C" int seven() { return 7; }\n'})
+
+    @NB.once
+    def loader():
+        return NB.load("tiny")
+
+    with ThreadPoolExecutor(4) as ex:
+        libs = list(ex.map(lambda _: loader(), range(8)))
+    assert all(lib is not None and lib.seven() == 7 for lib in libs)
+    assert len({id(lib) for lib in libs}) == 1
+    assert len(runs) == 1
+    files = [p.name for p in (tmp_path / "build").iterdir()]
+    assert len(files) == 1 and files[0].endswith(".so")

@@ -19,7 +19,7 @@ from typing import Iterator, List, Sequence, Tuple
 import numpy as np
 from PIL import Image
 
-from unetdc_tpu_torch.io.images import decode_rgb
+from unetdc_tpu_torch.io.native import decode_rgb
 
 _SUFFIXES = (".png", ".jpg", ".jpeg", ".tif")
 

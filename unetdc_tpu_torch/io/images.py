@@ -1,5 +1,5 @@
-"""Image decode/encode with PIL (port of the JAX package's `io/native.py`,
-without its optional C library)."""
+"""Image decode/encode with PIL: the fallback of `io/native.py` where
+libfastio does not build or load, with the same 16-bit rule."""
 
 from __future__ import annotations
 

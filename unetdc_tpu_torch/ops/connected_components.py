@@ -4,7 +4,11 @@ Port of the JAX package's `ops/connected_components.py`: `label_batch`,
 `quantify_mask_batch` (with its pre-sieve table), `remove_small_batch` and
 `component_areas` (reference quantify_droplets_batch.py: label ->
 drop components smaller than min_area -> relabel -> area/centroid table in
-raster order).
+raster order), and the single-image library surface: `propagate_roots`,
+`label`, `sieve_small_components`, `quantify_mask` and
+`quantify_mask_adaptive`. `quantify_mask` sums its table with a scatter
+over the component roots (`_quantify_from_roots`), as the JAX function
+does, not with K3.
 
 Algorithm (same as the JAX package): each pixel starts with its flat index;
 sweeps of segmented min-scans along rows and columns (plus four diagonal
@@ -350,3 +354,107 @@ def remove_small_batch(masks: torch.Tensor, min_size, max_labels: int,
     remove_objects, batched)."""
     return remove_small_batch_counted(masks, min_size, max_labels,
                                       connectivity)[0]
+
+
+def propagate_roots(mask: torch.Tensor, connectivity: int = 1
+                    ) -> torch.Tensor:
+    """(H, W) int32: the smallest flat index of each pixel's component
+    (background pixels keep their own index)."""
+    h, w = mask.shape
+    idx = torch.arange(h * w, dtype=torch.int32, device=mask.device
+                       ).reshape(1, h, w)
+    roots, _ = _propagate_counted(idx, mask.to(torch.bool)[None], h * w,
+                                  connectivity, True)
+    return roots[0]
+
+
+def label(mask: torch.Tensor, connectivity: int = 1
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Label the components of one (H, W) mask: (labels int32 numbered
+    1..n in raster order of first pixel, 0 for background; n int32).
+    connectivity 1 = 4-neighbours, 2 = 8-neighbours."""
+    labels, n = label_batch(mask[None], connectivity)
+    return labels[0], n[0]
+
+
+def sieve_small_components(labels: torch.Tensor, min_area: int,
+                           num_segments: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Drop the components of an (H, W) label image smaller than
+    `min_area` pixels and renumber the rest 1..m in raster order ->
+    (labels int32, m int32). `num_segments` must exceed the largest label
+    (a larger label reads the id of label num_segments - 1, as the JAX
+    package's clamped gather does)."""
+    areas = component_areas(labels[None], num_segments)[0]
+    keep = areas >= min_area
+    keep[0] = False
+    new_ids = torch.cumsum(keep.to(torch.int32), 0, dtype=torch.int32) * keep
+    return (new_ids[labels.long().clamp(0, num_segments - 1)],
+            keep.sum(dtype=torch.int32))
+
+
+def _quantify_from_roots(masks: torch.Tensor, roots: torch.Tensor, min_area,
+                         max_labels: int, want_presieve: bool = False
+                         ) -> Dict[str, torch.Tensor]:
+    """`_assemble_quantify` output of (B, H, W) masks from their component
+    roots: area and coordinate sums (chunked per `_coord_plan`) by one
+    scatter over the roots, then gathered at the first max_labels roots
+    in raster order."""
+    b, h, w = masks.shape
+    n_pix = h * w
+    cap = max_labels + 1
+    dev = masks.device
+    fg = masks.to(torch.bool)
+    idx = torch.arange(n_pix, dtype=torch.int32, device=dev).reshape(1, h, w)
+    is_root = fg & (roots == idx)
+    n_total = is_root.sum((1, 2), dtype=torch.int32)
+    rank = _cumsum2d(is_root.to(torch.int32))
+    keys = torch.where(fg, roots, n_pix).reshape(b, n_pix).long()
+    flat = torch.arange(n_pix, dtype=torch.int64, device=dev)
+    rows, cols = flat // w, flat % w
+    shifts, bits = _coord_plan(h, w)
+    if shifts is None:
+        cols_ = [torch.ones_like(rows), rows, cols]
+    else:
+        m = (1 << bits) - 1
+        cols_ = ([torch.ones_like(rows)] + [(rows >> s) & m for s in shifts]
+                 + [(cols >> s) & m for s in shifts])
+    feats = torch.stack(cols_, -1)                       # (n_pix, F)
+    nf = feats.shape[1]
+    sums = torch.zeros(b, n_pix + 1, nf, dtype=torch.int64, device=dev)
+    sums.scatter_add_(1, keys[..., None].expand(b, n_pix, nf),
+                      feats.expand(b, n_pix, nf))
+    slot = torch.where(is_root & (rank <= max_labels), rank, 0
+                       ).reshape(b, n_pix).long()
+    compact_root = torch.zeros(b, cap, dtype=torch.int64, device=dev)
+    compact_root.scatter_(1, slot, torch.where(slot > 0, flat, 0))
+    csums = torch.gather(sums, 1, compact_root[..., None].expand(b, cap, nf))
+    return _assemble_quantify(csums.to(torch.int32), n_total, (h, w),
+                              min_area, max_labels, shifts, bits,
+                              want_presieve)
+
+
+def quantify_mask(mask: torch.Tensor, min_area, max_labels: int,
+                  connectivity: int = 1) -> Dict[str, torch.Tensor]:
+    """Component table of one (H, W) mask without a label image: label,
+    drop components smaller than min_area, relabel in raster order ->
+    'count', 'total' (the exact pre-sieve count) and (max_labels,) int32
+    'area' and coordinate-sum tables (keys as `_assemble_quantify`)."""
+    roots = propagate_roots(mask, connectivity)
+    out = _quantify_from_roots(mask[None], roots[None], min_area, max_labels)
+    return {k: v[0] for k, v in out.items()}
+
+
+def quantify_mask_adaptive(mask: torch.Tensor, min_area,
+                           max_labels: int = 4096, connectivity: int = 1
+                           ) -> Dict[str, torch.Tensor]:
+    """`quantify_mask` whose cap doubles (on the host) until it holds
+    every component, so no component is cut off the table."""
+    cap = max_labels
+    while True:
+        stats = quantify_mask(mask, min_area, cap, connectivity)
+        total = int(stats["total"])
+        if total <= cap:
+            return stats
+        while cap < total:
+            cap *= 2

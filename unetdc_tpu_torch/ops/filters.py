@@ -3,6 +3,9 @@ package's `ops/filters.py`.
 
 - `gaussian_filter_scipy`: scipy.ndimage.gaussian_filter (mode 'reflect',
   truncate 4), as training augmentation uses it (one matmul per pass).
+- `gaussian_derivative_scipy`: scipy.ndimage.gaussian_filter with an
+  order per axis (mode 'reflect'), the blob detectors' LoG, DoG and
+  Hessian filters, with the rounding of `separable_taps` below.
 - `gaussian_blur`: cv2.GaussianBlur (BORDER_REFLECT_101) of the heatmap
   ROI, and `separable_taps`, the tap-by-tap filter the heatmaps use, with
   the JAX package's rounding: the JAX filter is a chain
@@ -125,3 +128,15 @@ def gaussian_filter_scipy(img: torch.Tensor, sigma: float,
     x = img.to(torch.float32)
     x = _correlate_last(x.transpose(-1, -2), k).transpose(-1, -2)
     return _correlate_last(x, k)
+
+
+def gaussian_derivative_scipy(img: torch.Tensor, sigma: float, order_y: int,
+                              order_x: int, truncate: float = 4.0
+                              ) -> torch.Tensor:
+    """scipy.ndimage.gaussian_filter(img, sigma, order=(order_y, order_x),
+    mode='reflect') over the last two dims, float32: the separable
+    Gaussian-derivative taps applied as the JAX package's `_separable`
+    applies them (`separable_taps`), so the sums round as there."""
+    ky = scipy_gaussian_kernel(sigma, truncate, order_y)
+    kx = scipy_gaussian_kernel(sigma, truncate, order_x)
+    return separable_taps(img, ky, kx, reflect101=False)

@@ -12,7 +12,15 @@ coefficients with the SIMD path's intermediate truncations, in int32,
 with the source taps picked by `index_select` (the TPU version used one-hot
 matmuls). The trainer and its test phase also use the JAX package's true
 INTER_NEAREST (`resize_nearest`) and float-weight uint8 INTER_LINEAR
-(`resize_linear_u8`).
+(`resize_linear_u8`); the library uses the float `resize_linear`,
+`resize_area` (cv2 INTER_AREA) and `resize_mask_linear_round` (the
+reference's mask upscale, which is the cv2-exact uint8 resize).
+
+The float resizes are two products with per-axis weight matrices, as in
+the JAX package (which computes them outside any Pallas kernel). Each
+output is a sum of at most two nonzero products per axis for
+INTER_LINEAR, so a library product rounds it as XLA's does up to the
+order of those two terms (within an ulp or two).
 """
 
 from __future__ import annotations
@@ -96,20 +104,64 @@ def _linear_weights(src: int, dst: int) -> np.ndarray:
     return w
 
 
+def _area_weights(src: int, dst: int) -> np.ndarray:
+    """(dst, src) box-average weight matrix (cv2 INTER_AREA downscale):
+    dst pixel d covers the source span [d*s, (d+1)*s), weighted by the
+    fractional overlap."""
+    w = np.zeros((dst, src), np.float32)
+    s = src / dst
+    for d in range(dst):
+        lo, hi = d * s, (d + 1) * s
+        for i in range(int(np.floor(lo)), min(int(np.ceil(hi)), src)):
+            overlap = min(hi, i + 1) - max(lo, i)
+            if overlap > 0:
+                w[d, i] = overlap / s
+    return w
+
+
+def _apply_sep(img: torch.Tensor, wy: np.ndarray, wx: np.ndarray
+               ) -> torch.Tensor:
+    """Per-axis weight matrices applied to (H, W) or (H, W, C), float32."""
+    wy = torch.from_numpy(wy).to(img.device)
+    wx = torch.from_numpy(wx).to(img.device)
+    x = img.to(torch.float32)
+    if x.dim() == 2:
+        return wy @ x @ wx.T
+    return torch.einsum("ew,dwc->dec", wx, torch.einsum("dh,hwc->dwc", wy, x))
+
+
+def resize_linear(img: torch.Tensor, out_hw: Tuple[int, int]
+                  ) -> torch.Tensor:
+    """cv2 INTER_LINEAR resize of (H, W) or (H, W, C) to (oh, ow), float32
+    out (no rounding)."""
+    oh, ow = out_hw
+    h, w = img.shape[:2]
+    return _apply_sep(img, _linear_weights(h, oh), _linear_weights(w, ow))
+
+
+def resize_area(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """cv2 INTER_AREA (box-average) downscale of (H, W) or (H, W, C),
+    float32 out; an axis that grows is resized bilinearly, as OpenCV
+    does."""
+    oh, ow = out_hw
+    h, w = img.shape[:2]
+    wy = _area_weights(h, oh) if oh <= h else _linear_weights(h, oh)
+    wx = _area_weights(w, ow) if ow <= w else _linear_weights(w, ow)
+    return _apply_sep(img, wy, wx)
+
+
+def resize_mask_linear_round(mask: torch.Tensor, out_hw: Tuple[int, int]
+                             ) -> torch.Tensor:
+    """Resize a 0/1 mask as the reference does: uint8 bilinear through
+    cv2's fixed-point kernel -> 0/1 uint8."""
+    return resize_linear_u8_cv2exact(mask.to(torch.uint8), tuple(out_hw))
+
+
 def resize_linear_u8(img: torch.Tensor, out_hw: Tuple[int, int]
                      ) -> torch.Tensor:
     """INTER_LINEAR resize of (H, W) or (H, W, C) to uint8, the JAX
     package's `resize_linear_u8`: two f32 weight-matrix products (rows,
     then columns) and floor(v + 0.5). It may differ from cv2 by 1 at exact
     fixed-point rounding ties."""
-    oh, ow = out_hw
-    h, w = img.shape[:2]
-    dev = img.device
-    wy = torch.from_numpy(_linear_weights(h, oh)).to(dev)
-    wx = torch.from_numpy(_linear_weights(w, ow)).to(dev)
-    x = img.to(torch.float32)
-    if x.dim() == 2:
-        y = wy @ x @ wx.T
-    else:
-        y = torch.einsum("ew,dwc->dec", wx, torch.einsum("dh,hwc->dwc", wy, x))
+    y = resize_linear(img, out_hw)
     return torch.clamp(torch.floor(y + 0.5), 0, 255).to(torch.uint8)

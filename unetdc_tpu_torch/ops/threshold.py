@@ -3,12 +3,13 @@ segmentation; port of the JAX package's `ops/threshold.py`, batched over
 the leading dims.
 
 Otsu's class sums are cumulative sums of 256 float32 bins. XLA on the CPU
-computes a 256-long cumsum as a two-level scan: sequential sums within 16
-blocks of 16 bins, a sequential scan of the block totals, and each block's
-exclusive prefix added to it. `_cumsum256` makes exactly those float32
-additions, so the thresholds are the JAX package's on the CPU and the same
-on the card (a library scan sums in another order, and a near-tie can then
-pick another threshold).
+computes a cumsum longer than 16 as a blocked scan: sequential sums within
+blocks of 16, the same scan (recursively) of the block totals, and each
+block's exclusive prefix added to it. `cumsum_xla_cpu` makes exactly those
+float32 additions, so the thresholds are the JAX package's on the CPU and
+the same on the card (a library scan sums in another order, and a near-tie
+can then pick another threshold). The blob detectors' integral image uses
+it too.
 """
 
 from __future__ import annotations
@@ -26,15 +27,22 @@ def _seq_cumsum(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _cumsum256(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive float32 cumsum of (..., 256) in XLA's two-level order."""
-    blocks = _seq_cumsum(x.reshape(*x.shape[:-1], 16, 16))
-    totals = _seq_cumsum(blocks[..., -1])
+def cumsum_xla_cpu(x: torch.Tensor, base: int = 16) -> torch.Tensor:
+    """Inclusive float32 cumsum along the last dim in XLA's CPU order: up
+    to `base` long, a sequential sum; longer, zero-padded to blocks of
+    `base`, summed sequentially within each block, and each block's
+    exclusive prefix (this scan of the block totals) added."""
+    n = x.shape[-1]
+    if n <= base:
+        return _seq_cumsum(x)
+    padded = -(-n // base) * base
+    xp = torch.nn.functional.pad(x, (0, padded - n))
+    blocks = _seq_cumsum(xp.reshape(*x.shape[:-1], padded // base, base))
+    totals = cumsum_xla_cpu(blocks[..., -1], base)
     excl = torch.cat([torch.zeros_like(totals[..., :1]), totals[..., :-1]],
                      -1)
-    out = torch.cat([blocks[..., :1, :],
-                     blocks[..., 1:, :] + excl[..., 1:, None]], -2)
-    return out.reshape(x.shape)
+    out = blocks + excl[..., None]
+    return out.reshape(*x.shape[:-1], padded)[..., :n]
 
 
 def otsu_threshold(img_u8: torch.Tensor) -> torch.Tensor:
@@ -50,8 +58,8 @@ def otsu_threshold(img_u8: torch.Tensor) -> torch.Tensor:
     hist.scatter_add_(1, flat, torch.ones_like(flat))
     p = hist.to(torch.float32) / n
     i = torch.arange(256, dtype=torch.float32, device=img_u8.device)
-    omega = _cumsum256(p)
-    mu_t = _cumsum256(p * i)
+    omega = cumsum_xla_cpu(p)
+    mu_t = cumsum_xla_cpu(p * i)
     mu_total = mu_t[:, -1:]
     q1, q2 = omega, 1.0 - omega
     valid = (q1 > 1e-7) & (q2 > 1e-7)

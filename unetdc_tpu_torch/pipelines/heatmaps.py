@@ -215,7 +215,7 @@ class BlobInspectorPipeline(BatchQuantifyPipeline):
 
     def _write_batch_outputs(self, out, paths, n_valid, rgbs=None):
         from unetdc_tpu_torch.io.fastcsv import write_csv
-        from unetdc_tpu_torch.io.images import encode_png_gray
+        from unetdc_tpu_torch.io.native import encode_png_gray
 
         plt = _pyplot()
         for i in range(n_valid):
@@ -240,7 +240,7 @@ class BlobInspectorPipeline(BatchQuantifyPipeline):
             df.insert(0, "filename", paths[i].name)
             write_csv(self.out_dir / f"{name}_droplets.csv", df)
             if self.overlay_dir is not None:
-                from unetdc_tpu_torch.io.images import encode_png_rgb
+                from unetdc_tpu_torch.io.native import encode_png_rgb
 
                 encode_png_rgb(self.overlay_dir / f"{name}_overlay.png",
                                draw_overlay(rgbs[i], mask))

@@ -30,7 +30,7 @@ import numpy as np
 import pandas as pd
 
 from unetdc_tpu_torch.io.fastcsv import write_csv
-from unetdc_tpu_torch.io.images import (decode_rgb, encode_png_gray,
+from unetdc_tpu_torch.io.native import (decode_rgb, encode_png_gray,
                                         encode_png_rgb)
 from unetdc_tpu_torch.pipelines.engine import QuantifyEngine, grayscale_view
 from unetdc_tpu_torch.utils.profiling import stage_timer
