@@ -66,6 +66,31 @@ Phases, each printing one JSON line:
                one step on the card and on the CPU from the same weights
                (`train_f32_card_vs_cpu` line: f32 with TF32 off and f64;
                see `card_vs_cpu_step` for the tolerances).
+  6b. train_mesh — training on meshes over the one card repeated (the
+               arithmetic of the sharded step, not peer copies):
+               (a) one f32 step (TF32 off) at 512x512, batch 8, on (2,1),
+               (1,2), (2,2) and (1,4), `shard_space` where the mesh has a
+               space axis, each against the single-device step from the
+               same seed-0 weights (cuDNN's heuristic algorithms: timing
+               every f32 shard shape costs minutes): loss within 1e-5
+               relative, every parameter within 2.05 * lr, the BatchNorm
+               running statistics within 1e-5 of each buffer's largest
+               magnitude;
+               then 7 valid samples padded to (2,1) against one device on
+               the 7; (b) the bf16 step's event time on one device and on
+               each mesh (reported, not gated; a torch.profiler split of
+               the (2,2) step); (c) Trainer.fit, f32, 2 epochs on the
+               16-pair set on (2,2) with `shard_space`, then a third
+               resumed from `.last` (the same dataset objects, as in one
+               process), against 3 epochs on one device: every history
+               value within 2e-4 relative; (d), after the int8 phase,
+               whose sidecar and unsharded run it uses: the int8 engine
+               with `shard_space` on (1,2) and (2,2) over the 16 images,
+               masks and CSVs byte-equal to the unsharded int8 run, K3
+               launched (the `int8_sharded` path); then
+               `dryrun_multichip(4)` over the card repeated 4 times. The
+               line prints after the int8 line, with the card's name and
+               power limit and the seconds of (a), (b) and (c).
   7. int8    — the port CLI with --int8 over the 16 images: K3 launched,
                K1/K2 not; the calibration sidecar written, and a second
                run that loads it gives byte-equal masks and CSVs; the
@@ -112,7 +137,8 @@ Phases, each printing one JSON line:
  11. native_io — native_available(), libfastio vs PIL decode (PNG, JPEG
                q90) and mask-encode host ms on a 600x800 image, and
                equality with PIL's decode (JPEG within 2 levels).
-Every line of phases 9-11 carries the card's name and power limit.
+Every line of phases 6b and 9-11 carries the card's name and power
+limit.
 Then the `kernels` line (with each kernel's launches on every path), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: the script exits
@@ -574,7 +600,7 @@ def row_shards(t, S, n):
     neighbours (zeros past the image): the `ext` kernels' inputs."""
     import torch
 
-    from unetdc_tpu_torch.models.unet_fast import halo
+    from unetdc_tpu_torch.core.mesh import halo
 
     return halo(list(torch.chunk(t, S, 1)), n, 1)
 
@@ -1437,6 +1463,264 @@ def card_vs_cpu_step(work: Path):
     return r
 
 
+# ----------------------------------------------------------- train_mesh --
+MESHES = ((2, 1, False), (1, 2, True), (2, 2, True), (1, 4, True))
+
+
+@contextlib.contextmanager
+def seed0_weights_drawn_once():
+    """Every Trainer built inside starts from flax's initializers at seed 0,
+    drawn once and copied into each model (the draws take seconds for the
+    full-width model on the host)."""
+    import torch
+
+    from unetdc_tpu_torch.models.unet import UNetDC
+    from unetdc_tpu_torch.train import trainer as T
+
+    real = T.init_flax_
+    seed0 = real(UNetDC(), torch.Generator().manual_seed(0)).state_dict()
+
+    def init(model, generator):
+        if isinstance(model, UNetDC) and generator.initial_seed() == 0:
+            model.load_state_dict(seed0)
+            return model
+        return real(model, generator)
+
+    T.init_flax_ = init
+    try:
+        yield
+    finally:
+        T.init_flax_ = real
+
+
+def train_set_batch(work: Path, device, n: int = BATCH):
+    """The first n pairs of the train set as uint8 tensors on `device`."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from unetdc_tpu_torch.io.images import decode_rgb
+
+    names = sorted((work / "train_set" / "images").glob("*.png"))[:n]
+    imgs = np.stack([decode_rgb(p) for p in names])
+    masks = np.stack([(np.array(Image.open(
+        work / "train_set" / "masks" / p.name)) > 0).astype(np.uint8)
+        for p in names])
+    return (torch.from_numpy(imgs).to(device),
+            torch.from_numpy(masks).to(device))
+
+
+def step_delta(t, ref) -> dict:
+    """A trainer's state after one step against the reference's: the
+    largest parameter delta and the largest running-statistic delta over
+    its buffer's largest magnitude."""
+    dp = max(float((a - b).detach().abs().max()) for a, b in zip(
+        t.model.parameters(), ref.model.parameters()))
+    ds = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(
+        t.model.buffers(), ref.model.buffers()) if b.is_floating_point())
+    return {"max_param_delta": dp, "bn_stats_rel_diff": ds}
+
+
+def train_mesh_phase(work: Path, device: str = "cuda", size: int = 512,
+                     reps: int = 10):
+    """(a)-(c) of phase 6b on meshes over the one card repeated (see the
+    docstring); failures are collected in `failed` and raised by the
+    caller after the line is printed."""
+    import numpy as np
+    import torch
+
+    from unetdc_tpu_torch.core import mesh as M
+    from unetdc_tpu_torch.data.dataset import (SegmentationData,
+                                               discover_pairs, split_dataset)
+    from unetdc_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    dev = M.norm_device(device)
+    r = {"phase": "train_mesh", "card_repeated": True, "size": size,
+         "batch": BATCH, "failed": []}
+
+    def hold(cond, what):
+        if not cond:
+            r["failed"].append(what)
+
+    def mesh(nd, ns):
+        return M.make_mesh(nd, ns, devices=[dev] * (nd * ns))
+
+    def cfg(dtype, **kw):
+        return TrainConfig(batch_size=BATCH, img_size=size, augment=False,
+                           compute_dtype=dtype, seed=0, **kw)
+
+    def f32_trainer(*a, **k):
+        # the Trainer lets cuDNN time its algorithms for every new shape,
+        # which in f32 (no tensor cores) costs minutes over the meshes'
+        # shard shapes; the f32 checks take cuDNN's heuristic choice
+        t = Trainer(*a, **k)
+        torch.backends.cudnn.benchmark = False
+        return t
+
+    imgs, masks = train_set_batch(work, dev)
+    parts = r["seconds_by_part"] = {}
+    with seed0_weights_drawn_once():
+        # (a) one f32 step per mesh against one device, TF32 off
+        ref = f32_trainer(cfg("f32"), device=dev)
+        x, m = ref.preprocess(imgs, masks)
+        m = m[..., None]
+        ones = np.ones(BATCH, np.float32)
+        valid = torch.ones(BATCH, device=dev)
+        loss_1 = float(ref.train_step(x, m, valid, ones)[0])
+        r["f32_step"] = {"single_loss": loss_1}
+        for nd, ns, ss in MESHES:
+            t = f32_trainer(cfg("f32", shard_space=ss), mesh=mesh(nd, ns))
+            loss = float(t.train_step(x, m, valid, ones)[0])
+            row = {"loss": loss, "loss_rel_diff": abs(loss - loss_1)
+                   / abs(loss_1), **step_delta(t, ref)}
+            r["f32_step"][f"{nd}x{ns}"] = row
+            hold(row["loss_rel_diff"] <= 1e-5 and row["max_param_delta"]
+                 <= 2.05 * t.cfg.lr and row["bn_stats_rel_diff"] <= 1e-5,
+                 f"f32 step on {nd}x{ns}: {row}")
+            del t
+        # the ragged step: 7 valid samples padded to (2, 1) with a replica
+        # of weight 0, against one device on the 7
+        ref = f32_trainer(cfg("f32"), device=dev)
+        loss_1 = float(ref.train_step(x[:7], m[:7], valid[:7], ones[:7])[0])
+        t = f32_trainer(cfg("f32"), mesh=mesh(2, 1))
+        xp, mp, vp = M.pad_to_data_axis(x[:7], m[:7], ones[:7], t.mesh)
+        loss = float(t.train_step(xp, mp, torch.from_numpy(vp).to(dev),
+                                  vp)[0])
+        row = {"loss": loss, "single_loss": loss_1,
+               "loss_rel_diff": abs(loss - loss_1) / abs(loss_1),
+               **step_delta(t, ref)}
+        r["f32_step"]["ragged_7_on_2x1"] = row
+        hold(xp.shape[0] == 8 and row["loss_rel_diff"] <= 1e-5
+             and row["max_param_delta"] <= 2.05 * t.cfg.lr
+             and row["bn_stats_rel_diff"] <= 1e-5, f"ragged step: {row}")
+        del t, ref
+        parts["a_f32_steps"] = time.perf_counter() - t0
+
+        # (b) the bf16 step's event time per mesh (reported, not gated)
+        if dev.type == "cuda":
+            steps = {}
+            for shape in ((1, 1, False),) + MESHES:
+                nd, ns, ss = shape
+                t = Trainer(cfg("bf16", shard_space=ss),
+                            mesh=None if nd * ns == 1 else mesh(nd, ns),
+                            device=dev)
+                xb, mb = t.preprocess(imgs, masks)
+                mb = mb[..., None]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(lambda: t.train_step(xb, mb, valid, ones),
+                             reps=reps)
+                steps[f"{nd}x{ns}"] = {
+                    "step_ms_median": ms,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+                if (nd, ns) == (2, 2):
+                    steps["2x2"]["device_profile"] = profile_step(
+                        lambda: t.train_step(xb, mb, valid, ones), ms)
+                del t
+            r["bf16_step"] = {"single_device_ms_perf_md": 42.9, **steps}
+        parts["b_bf16_timing"] = time.perf_counter() - t0 - sum(
+            parts.values())
+
+        # (c) Trainer.fit, f32, on (2, 2) with shard_space: 2 epochs, then
+        # a third resumed from `.last`, against 3 epochs on one device
+        data = work / "train_set"
+        (tr, trm), (va, vam), _ = split_dataset(
+            *discover_pairs(str(data / "images"), str(data / "masks")))
+
+        def datasets():  # one pair per run: the shuffle follows its calls
+            return [SegmentationData(str(data / "images"),
+                                     str(data / "masks"), il, ml,
+                                     batch_size=BATCH, shuffle=sh, seed=0)
+                    for il, ml, sh in ((tr, trm, True), (va, vam, False))]
+
+        def fit(m_, epochs, ckpt, sets, resume=False):
+            c = cfg("f32", num_epochs=epochs, resume=resume, patience=50,
+                    shard_space=True, ckpt_path=str(ckpt),
+                    save_last=m_ is not None)
+            with contextlib.redirect_stdout(io.StringIO()):
+                return f32_trainer(c, mesh=m_, device=dev).fit(*sets)
+
+        fit_dir = work / "train_mesh_fit"
+        fit_dir.mkdir()
+        t1 = time.perf_counter()
+        h1 = fit(None, 3, fit_dir / "one.msgpack", datasets())
+        t2 = time.perf_counter()
+        sets = datasets()
+        hm = fit(mesh(2, 2), 2, fit_dir / "mesh.msgpack", sets)
+        h3 = fit(mesh(2, 2), 3, fit_dir / "mesh.msgpack", sets, resume=True)
+        t3 = time.perf_counter()
+        shutil.rmtree(fit_dir)
+        hist = {k: hm[k] + h3[k] for k in hm}
+        worst = {k: max(abs(a - b) / abs(b) for a, b in zip(hist[k], h1[k]))
+                 for k in h1}
+        r["fit_2x2_shard_space"] = {
+            "epochs_single": len(h1["train_loss"]),
+            "epochs_mesh": [len(hm["train_loss"]), len(h3["train_loss"])],
+            "history_mesh": hist, "history_single": h1,
+            "max_rel_diff": worst, "single_s": t2 - t1, "mesh_s": t3 - t2}
+        hold(len(h3["train_loss"]) == 1 and all(
+            v <= 2e-4 for v in worst.values()), f"fit on 2x2: {worst}")
+    r["seconds"] = time.perf_counter() - t0
+    parts["c_fit"] = r["seconds"] - sum(parts.values())
+    return r
+
+
+def int8_sharded(work: Path, img_dir: Path, ckpt: Path, cb, r: dict):
+    """(d) of phase 6b: the int8 engine with shard_space on (1, 2) and
+    (2, 2), from the int8 phase's sidecar, byte-equal to its unsharded
+    run; K3's launches on (2, 2) are the `int8_sharded` path."""
+    import torch
+
+    from unetdc_tpu_torch.core.mesh import make_mesh
+    from unetdc_tpu_torch.pipelines.engine import load_engine
+    from unetdc_tpu_torch.pipelines.quantify_batch import BatchQuantifyPipeline
+
+    t0 = time.perf_counter()
+    card = torch.device("cuda", 0)
+    sidecar = str(ckpt) + ".int8calib.npz"
+    out = {}
+    for nd, ns in ((1, 2), (2, 2)):
+        eng = load_engine(str(ckpt), quantize="int8", calib_path=sidecar,
+                          mesh=make_mesh(nd, ns, devices=[card] * (nd * ns)),
+                          shard_space=True)
+        torch.cuda.synchronize()
+        cb.reset_launches()
+        d = work / f"int8_sh{nd}{ns}"
+        pipe = BatchQuantifyPipeline(eng, str(d), batch=BATCH,
+                                     px_per_micron=PX_PER_UM)
+        pipe.run(str(img_dir), progress=False)
+        torch.cuda.synchronize()
+        launches = dict(cb.LAUNCHES)
+        mis, csv = compare_runs(img_dir, d, work / "int8_a")
+        out[f"{nd}x{ns}"] = {"mask_mismatch": mis, "csv_differ": csv,
+                             "launches": launches,
+                             "megastep_ms": eng.megastep_ms}
+        if (mis, csv) != (0, 0):
+            r["failed"].append(f"int8 shard_space {nd}x{ns} vs unsharded "
+                               f"int8: masks {mis}, CSVs {csv}")
+        if launches.get("component_tables", 0) < 1:
+            r["failed"].append(f"int8 shard_space {nd}x{ns}: K3 never "
+                               "launched")
+    out["seconds"] = time.perf_counter() - t0
+    r["int8_shard_space"] = out
+    return out["2x2"]["launches"]
+
+
+def mesh_dryrun(r: dict):
+    """`dryrun_multichip(4)` over the card repeated 4 times."""
+    import torch
+
+    from unetdc_tpu_torch.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dryrun_multichip(4, devices=[torch.device("cuda", 0)] * 4)
+    r["dryrun_multichip_4"] = {"line": buf.getvalue().strip(),
+                               "seconds": time.perf_counter() - t0}
+
+
 # ----------------------------------------------------------------- int8 --
 def int8_phase(work: Path, img_dir: Path, ckpt: Path, cb, bf16_engine):
     """The int8 forward through the port CLI, its sidecar, card vs CPU,
@@ -2127,11 +2411,17 @@ def main() -> int:
         emit(train)
         emit(train_step_timing(work))
         emit(card_vs_cpu_step(work))
+        card = card_label()
+        tmesh = train_mesh_phase(work)
+        tmesh["card"] = card
         int8 = int8_phase(work, img_dir, ckpt, cb, pipe.engine)
         emit(int8)
+        int8_sh = int8_sharded(work, img_dir, ckpt, cb, tmesh)
+        mesh_dryrun(tmesh)
+        emit(tmesh)
+        check(not tmesh["failed"], f"train_mesh: {tmesh['failed']}")
         heat = heatmaps_phase(img_dir, ckpt, cb)
         emit(heat)
-        card = card_label()
         lib = library_phase(img_dir, ckpt, cb, card)
         emit(lib)
         check(not lib["failed"], f"library: {lib['failed']}")
@@ -2145,6 +2435,7 @@ def main() -> int:
                  "heatmap_v1": heat["heatmap_v1"]["launches"],
                  "blobinspector": heat["blobinspector"]["launches"],
                  "sharded": sharded["launches"],
+                 "int8_sharded": int8_sh,
                  "library": lib["launches"],
                  "int8_trained": i8t["launches"]}
         keys = {"K1": "conv3x3_relu_pool", "K2": "dec1_head",

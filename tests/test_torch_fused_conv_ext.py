@@ -15,7 +15,7 @@ import jax.numpy as jnp
 
 from unetdc_tpu.models import unet_fast as JF
 from unetdc_tpu.ops.pallas_conv import dec1_head, pair_conv_pool, pair_mid_side
-from unetdc_tpu_torch.models.unet_fast import halo
+from unetdc_tpu_torch.core.mesh import halo
 from unetdc_tpu_torch.ops import fused_conv as fc
 
 FLAGS = [(0, 0), (1, 0), (0, 1), (1, 1)]

@@ -171,6 +171,53 @@ def test_forward_int8_equals_jax(model, jax_calib):
     assert np.abs(got - jax_calib[0]).max() < 1e-2
 
 
+def test_forward_int8_spmd_equals_jax_sharded_int8_engine(model, jax_calib):
+    """The height-sharded int8 forward on a (2, 2) CPU mesh: byte-equal to
+    the port's unsharded forward_int8, and within 1e-6 (an equal 0.3 mask)
+    of the JAX int8 engine's forward on its (2, 2) virtual-device mesh
+    with shard_space (flip undone), from the same maxima.
+
+    The JAX int8 program does not compile with the input sharded over the
+    height (XLA's SPMD partitioner pads an int8 halo with an operand of
+    another type; ROADMAP queue C), so JAX gets the input sharded over the
+    batch and its partitioner places the rest."""
+    from unetdc_tpu.core.mesh import batch_sharding
+    from unetdc_tpu.core.mesh import make_mesh as jax_mesh
+    from unetdc_tpu.models.unet import UNetDC, init_params
+    from unetdc_tpu.pipelines.engine import QuantifyEngine as JaxEngine
+    from unetdc_tpu_torch.checkpoint.convert import variables_to_state_dict
+    from unetdc_tpu_torch.core.mesh import make_mesh
+    from unetdc_tpu_torch.models import unet_int8 as P
+    from unetdc_tpu_torch.pipelines.engine import QuantifyEngine
+
+    _, _, x, _ = model
+    mx = jax_calib[1]
+    v = init_params(UNetDC(use_bn=True, dtype=jnp.float32),
+                    jax.random.PRNGKey(3), (1, 32, 32, 3))
+    jm = jax_mesh(2, 2)
+    jeng = JaxEngine(v, quantize="int8", img_size=64, mesh=jm,
+                     shard_space=True)
+    jeng._finalize_int8(mx)
+    jeng.params = _flip_up(jeng.params)
+    with pytest.raises(jax.errors.JaxRuntimeError, match="Pad"):
+        jeng.forward_probs(jax.device_put(
+            jnp.asarray(x), batch_sharding(jm, 4, space_dim=1)))
+    ref = np.asarray(jeng.forward_probs(jax.device_put(
+        jnp.asarray(x), batch_sharding(jm, 4))))
+    eng = QuantifyEngine(variables_to_state_dict(v), quantize="int8",
+                         img_size=64, device="cpu",
+                         mesh=make_mesh(2, 2, devices="cpu"),
+                         shard_space=True)
+    eng._finalize_int8(mx)
+    got = eng.forward_probs(torch.from_numpy(x))
+    plain = P.forward_int8(P.prepare_int8_params(
+        P.build_int8_params(eng._folded, mx)), torch.from_numpy(x), DIL)
+    assert torch.equal(got, plain)
+    assert got.shape == ref.shape == (2, 64, 64, 1)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-6)
+    np.testing.assert_array_equal(got.numpy() > 0.3, ref > 0.3)
+
+
 def test_requant_is_one_rounding():
     """The JAX requantization on the CPU rounds the multiply-add once
     (a fused multiply-add); the port's float64 form gives its int8s."""

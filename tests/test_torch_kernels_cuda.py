@@ -115,7 +115,7 @@ def test_k2_main_path_shape(dev):
 
 
 def _shards(t, S, n):
-    from unetdc_tpu_torch.models.unet_fast import halo
+    from unetdc_tpu_torch.core.mesh import halo
 
     return halo(list(torch.chunk(t, S, 1)), n, 1)
 

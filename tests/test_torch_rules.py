@@ -105,10 +105,13 @@ def test_engine_loads_jax_msgpack_checkpoint(tmp_path):
 @pytest.mark.parametrize("which", ["trainer", "train_dc_focal", "train"])
 def test_train_entry_points_default_to_cuda(monkeypatch, tmp_path, which):
     """Trainer and both train CLIs run on the card unless asked, and raise
-    (no CPU fallback) when there is none."""
+    (no CPU fallback) when there is none, also on a mesh
+    (--data_parallel); with --device cpu both CLIs train on a CPU mesh and
+    write the checkpoint files (train_dc_focal with its test phase)."""
     import inspect
 
     from unetdc_tpu_torch.cli import train, train_dc_focal
+    from unetdc_tpu_torch.core.mesh import Mesh
     from unetdc_tpu_torch.train.trainer import TrainConfig, Trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -117,6 +120,9 @@ def test_train_entry_points_default_to_cuda(monkeypatch, tmp_path, which):
             == "cuda"
         with pytest.raises(RuntimeError, match="CUDA"):
             Trainer(TrainConfig(img_size=32))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Trainer(TrainConfig(img_size=32, shard_space=True),
+                    mesh=Mesh([["cuda", "cuda"]]), device="cpu")
         return
     cli = {"train": train, "train_dc_focal": train_dc_focal}[which]
     args = cli.build_parser().parse_args(["--image_dir", "x",
@@ -134,8 +140,52 @@ def test_train_entry_points_default_to_cuda(monkeypatch, tmp_path, which):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--image_dir", "img", "--mask_dir", "msk",
                   "--img_size", "32"])
-    with pytest.raises(SystemExit, match="ROADMAP queue A, Multi-GPU"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--image_dir", "img", "--mask_dir", "msk",
+                  "--data_parallel", "2"])
+    mesh_flags = ["--data_parallel", "2"] + (
+        ["--shard_space", "2"] if which == "train_dc_focal" else [])
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))  # a full-width model
+    try:
+        trainer = cli.main(["--image_dir", "img", "--mask_dir", "msk",
+                            "--img_size", "32", "--epochs", "1", "--batch",
+                            "2", "--precision", "f32", "--no_augment",
+                            "--device", "cpu"] + mesh_flags)
+    finally:
+        torch.set_num_threads(threads)
+    sharded = which == "train_dc_focal"
+    assert trainer.mesh.shape == {"data": 2, "space": 2 if sharded else 1}
+    assert trainer.cfg.shard_space == sharded
+    defaults = cli.build_parser().parse_args(["--image_dir", "x",
+                                              "--mask_dir", "y"])
+    ck = defaults.ckpt_path
+    if sharded:  # the test phase ran under the mesh
+        assert any((tmp_path / defaults.overlay_dir).iterdir())
+    for suffix in ("", ".meta.json", ".opt", ".last", ".state.json"):
+        assert (tmp_path / (ck + suffix)).exists(), suffix
+    for p in tmp_path.glob(ck + "*"):       # ~0.75 GB of checkpoints
+        p.unlink()
+
+
+@pytest.mark.parametrize("cli", ["train_dc_focal", "train"])
+def test_train_clis_data_parallel_needs_the_cards(monkeypatch, tmp_path,
+                                                  cli):
+    """--device cuda --data_parallel 2 on a host with one card raises the
+    mesh's error before any training; nothing runs on the CPU instead."""
+    import importlib
+
+    from unetdc_tpu_torch.train import trainer as T
+
+    def no_trainer(*a, **k):
+        raise AssertionError("a trainer was built")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(T.Trainer, "__init__", no_trainer)
+    mod = importlib.import_module(f"unetdc_tpu_torch.cli.{cli}")
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
+        mod.main(["--image_dir", str(tmp_path), "--mask_dir", str(tmp_path),
                   "--data_parallel", "2"])
 
 

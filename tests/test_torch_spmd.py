@@ -21,7 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from tests.torch_reference import make_decisive_checkpoint
-from unetdc_tpu_torch.core.mesh import make_mesh, replicate
+from unetdc_tpu_torch.core.mesh import halo, make_mesh, replicate
 from unetdc_tpu_torch.models import unet as TU
 from unetdc_tpu_torch.models import unet_fast as PF
 
@@ -165,7 +165,7 @@ def test_spmd_routes_undividable_shapes_to_one_device(capsys):
 
 def test_halo_takes_rows_from_neighbours_and_never_aliases():
     shards = [torch.arange(2 * i, 2 * i + 2.).view(1, 2, 1) for i in range(4)]
-    ext = PF.halo(shards, 3, 1)
+    ext = halo(shards, 3, 1)
     assert [e.view(-1).tolist() for e in ext] == [
         [0, 0, 0, 0, 1, 2, 3, 4], [0, 0, 1, 2, 3, 4, 5, 6],
         [1, 2, 3, 4, 5, 6, 7, 0], [3, 4, 5, 6, 7, 0, 0, 0]]
@@ -234,23 +234,29 @@ def test_f32_engine_shard_space_matches_single_and_jax(decisive_ckpt):
 
 
 def test_engine_int8_mesh_is_data_parallel(decisive_ckpt):
-    """Int8 under a mesh splits the batch only (equal to one device);
-    int8 with shard_space is refused, naming the ROADMAP item."""
+    """Int8 under a mesh: the batch split over (2, 1), and the height too
+    with shard_space on (1, 2) and (2, 2) (`forward_int8_spmd`: every int8
+    conv on its own halo of int8 rows), each byte-equal to the unsharded
+    int8 engine, with one sidecar's scales."""
     from unetdc_tpu_torch.pipelines.engine import load_engine
 
-    outs = []
-    for mesh in (None, make_mesh(2, 1, devices="cpu")):
+    outs = {}
+    side = decisive_ckpt + ".mesh.int8calib.npz"
+    for shape, ss in ((None, False), ((2, 1), False), ((1, 2), True),
+                      ((2, 2), True)):
+        mesh = shape and make_mesh(*shape, devices="cpu")
         eng = load_engine(decisive_ckpt, mesh=mesh, quantize="int8",
-                          device="cpu")
+                          device="cpu", calib_path=side, shard_space=ss)
         eng.img_size = 32
-        outs.append(eng.run_batch(IMGS[:4], (72, 80), background_radius=10))
+        outs[shape] = eng.run_batch(IMGS[:4], (72, 80),
+                                    background_radius=10)
         if mesh is not None:
             assert set(eng.replicas) == {torch.device("cpu")}
-    for k in outs[0]:
-        np.testing.assert_array_equal(outs[1][k], outs[0][k], err_msg=k)
-    with pytest.raises(ValueError, match="ROADMAP queue A, Multi-GPU"):
-        load_engine(decisive_ckpt, mesh=make_mesh(1, 2, devices="cpu"),
-                    quantize="int8", device="cpu", shard_space=True)
+    assert 0 < outs[None]["mask"].mean() < 255
+    for shape, out in outs.items():
+        for k in outs[None]:
+            np.testing.assert_array_equal(out[k], outs[None][k],
+                                          err_msg=f"{shape} {k}")
 
 
 def test_batch_not_dividing_over_the_mesh_raises_as_jax(decisive_ckpt):

@@ -3,16 +3,14 @@
 loss, 50 epochs, patience 10; train.py:103-259), plus `--device`.
 
     python -m unetdc_tpu_torch.cli.train --image_dir ... --mask_dir ... \
-        [--device {cuda,cpu}]
+        [--device {cuda,cpu}] [--data_parallel N]
 """
 
 from __future__ import annotations
 
 import argparse
 
-from unetdc_tpu_torch.cli.train_dc_focal import (add_common_flags,
-                                                 check_single_device)
-from unetdc_tpu_torch.train.trainer import MULTI_GPU
+from unetdc_tpu_torch.cli.train_dc_focal import add_common_flags, build_mesh
 
 
 def build_parser():
@@ -36,14 +34,15 @@ def build_parser():
                         "(the reference leaves its summary() call "
                         "commented out, train_DC_focal.py:212)")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help=f"not available: {MULTI_GPU}")
+                   help="train data-parallel over N devices (0 = one "
+                        "device)")
     add_common_flags(p)
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    check_single_device(args)
+    mesh = build_mesh(args)
 
     from unetdc_tpu_torch.data.dataset import (SegmentationData,
                                                discover_pairs, split_dataset)
@@ -63,7 +62,7 @@ def main(argv=None):
         augment=not args.no_augment,
         resume=args.resume, history_jsonl=args.history_jsonl,
         remat=args.remat, step_chunk=args.step_chunk)
-    trainer = Trainer(cfg, device=args.device)
+    trainer = Trainer(cfg, mesh=mesh, device=args.device)
     if args.summary:
         from unetdc_tpu_torch.utils.summary import model_summary
 

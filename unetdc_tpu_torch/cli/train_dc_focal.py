@@ -9,14 +9,15 @@ Includes the reference's full test phase: loss/dice/accuracy, confusion
 matrix artifact, per-image predicted masks, difference maps and overlays
 (train_DC_focal.py:365-468). Runs on the GPU unless `--device cpu` is
 given; without a GPU it fails rather than fall back to the CPU.
+`--data_parallel N [--shard_space S]` trains on a mesh of N x S devices
+(N*S cards; with `--device cpu`, logical CPU slots): the batch splits over
+N, and with S > 1 each image's height over S (`train/trainer.py`).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-
-from unetdc_tpu_torch.train.trainer import MULTI_GPU
 
 STEP_CHUNK_HELP = ("accepted for compatibility with the JAX trainer, which "
                    "fuses this many steps into one dispatch; the port runs "
@@ -36,9 +37,18 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                    help="where to run (default: the GPU)")
 
 
-def check_single_device(args) -> None:
-    if args.data_parallel or getattr(args, "shard_space", 1) > 1:
-        raise SystemExit(f"--data_parallel/--shard_space: {MULTI_GPU}")
+def build_mesh(args):
+    """The JAX CLIs' mesh rule, `make_mesh(N, S) if N else None`, over the
+    devices of `--device`; a CUDA run first checks that a card exists, and
+    a mesh larger than the cards raises (never a CPU fallback)."""
+    if not args.data_parallel:
+        return None
+    from unetdc_tpu_torch.core.mesh import make_mesh
+    from unetdc_tpu_torch.device import resolve_device
+
+    resolve_device(args.device)
+    return make_mesh(args.data_parallel, getattr(args, "shard_space", 1),
+                     devices=args.device)
 
 
 def build_parser():
@@ -70,9 +80,11 @@ def build_parser():
                    help="actually step ReduceLROnPlateau (the reference "
                         "configures but never calls it)")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help=f"not available: {MULTI_GPU}")
+                   help="train data-parallel over N devices (0 = one "
+                        "device)")
     p.add_argument("--shard_space", type=int, default=1,
-                   help=f"values above 1 are not available: {MULTI_GPU}")
+                   help="additionally shard image height over this many "
+                        "devices (mesh = data_parallel x shard_space)")
     add_common_flags(p)
     p.add_argument("--skip_test", action="store_true")
     p.add_argument("--extra_test_viz", action="store_true",
@@ -87,7 +99,7 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    check_single_device(args)
+    mesh = build_mesh(args)
 
     import numpy as np
 
@@ -110,8 +122,9 @@ def main(argv=None):
         plateau_scheduler=args.plateau_scheduler,
         compute_dtype=args.precision, augment=not args.no_augment,
         resume=args.resume, history_jsonl=args.history_jsonl,
-        remat=args.remat, step_chunk=args.step_chunk)
-    trainer = Trainer(cfg, device=args.device)
+        remat=args.remat, shard_space=args.shard_space > 1,
+        step_chunk=args.step_chunk)
+    trainer = Trainer(cfg, mesh=mesh, device=args.device)
     if args.summary:
         from unetdc_tpu_torch.utils.summary import model_summary
 

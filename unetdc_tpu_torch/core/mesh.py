@@ -5,19 +5,26 @@ of devices.
 - ``data``: batch data parallelism; each data group (a row of the grid)
   runs the engine's megastep on its own batch slice.
 - ``space``: the image height split over the devices of a data group, with
-  halo rows handed between neighbouring shards
-  (`models/unet_fast.py::forward_folded_spmd`).
+  halo rows handed between neighbouring shards (`halo`; the inference
+  forwards `models/unet_fast.py::forward_folded_spmd` and
+  `models/unet_int8.py::forward_int8_spmd`, the train-mode forward
+  `models/unet.py::forward_sharded`).
 
 The grid holds `torch.device`s, and one device may appear more than once:
 a mesh over one card repeated computes every shard's arithmetic on that
 card, in turn (the counterpart of the JAX package's virtual CPU mesh).
 For the CPU the mesh takes `CPU_SLOTS` logical slots of the one CPU device.
+
+Every helper here is differentiable: a copy between devices (`Tensor.to`)
+carries its gradient back, so one autograd graph spans the mesh (the
+training step's gradient all-reduce is the backward of the weight copies).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 DATA_AXIS = "data"
@@ -134,3 +141,77 @@ def replicate(mesh: Mesh, build) -> Dict[torch.device, object]:
     """One copy of the params per distinct device: `build(device)` is
     called once for each."""
     return {d: build(d) for d in mesh.distinct()}
+
+
+def pad_to_data_axis(imgs: torch.Tensor, masks: torch.Tensor,
+                     valid: np.ndarray, mesh: Mesh
+                     ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray]:
+    """A ragged batch padded to a multiple of the data axis by replicating
+    its last sample, the replicas with weight 0 in `valid` (the JAX
+    trainer's `_device_batch`): they stay out of the loss, the gradients,
+    the BatchNorm statistics and the metrics."""
+    pad = -imgs.shape[0] % mesh.shape[DATA_AXIS]
+    if not pad:
+        return imgs, masks, valid
+
+    def rep(t):
+        return torch.cat([t, t[-1:].expand(pad, *t.shape[1:])])
+
+    return rep(imgs), rep(masks), np.concatenate(
+        [valid, np.zeros(pad, valid.dtype)])
+
+
+def reduce_to(parts: Sequence[torch.Tensor],
+              device: torch.device) -> torch.Tensor:
+    """The sum of same-shape `parts` (one per shard, on their devices) on
+    `device`, added in shard order (the cross-shard all-reduce)."""
+    return torch.stack([p.to(device, non_blocking=True) for p in parts]
+                       ).sum(0)
+
+
+def _zeros_like_rows(s: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """n zero rows (along `dim`) in s's type, device and memory format."""
+    shape = list(s.shape)
+    shape[dim] = n
+    z = s.new_zeros(shape)
+    if s.dim() == 4 and not s.is_contiguous() and \
+            s.is_contiguous(memory_format=torch.channels_last):
+        z = z.contiguous(memory_format=torch.channels_last)
+    return z
+
+
+def halo(shards: Sequence[torch.Tensor], n: int, dim: int
+         ) -> List[torch.Tensor]:
+    """Each shard with n rows (along `dim`) from the shards above and below
+    it prepended and appended, taken from as many neighbours as n needs,
+    and zeros past the global edges (SAME padding), as the JAX package's
+    `lax.ppermute` halo. Rows cross to the shard's device with a copy;
+    every result is a new tensor (torch.cat), aliasing no shard."""
+    out = []
+    for i, s in enumerate(shards):
+        parts = []
+        for side in (-1, 1):
+            need, j, got = n, i + side, []
+            while need > 0 and 0 <= j < len(shards):
+                src = shards[j]
+                k = min(need, src.shape[dim])
+                rows = (src.narrow(dim, src.shape[dim] - k, k) if side < 0
+                        else src.narrow(dim, 0, k))
+                got.append(rows.to(s.device, non_blocking=True))
+                need, j = need - k, j + side
+            if need > 0:  # past the global edge
+                got.append(_zeros_like_rows(s, dim, need))
+            parts.append(got[::-1] if side < 0 else got)
+        out.append(torch.cat(parts[0] + [s] + parts[1], dim))
+    return out
+
+
+def gather_if_odd(shards: List[torch.Tensor], dim: int
+                  ) -> List[torch.Tensor]:
+    """The shards of one data group, or, where a 2x2 pool would cut across
+    a seam (an odd number of rows per shard), the group gathered whole
+    onto its first shard's device (a one-element list): the levels below
+    then run unsharded there."""
+    if len(shards) > 1 and shards[0].shape[dim] % 2:
+        return [gather(shards, dim, shards[0].device)]
+    return shards

@@ -31,6 +31,12 @@ Training follows the JAX package's flax module, not `nn.BatchNorm2d`:
     that returns its batch statistics; the running statistics are updated
     outside it, so a recompute cannot update them twice;
   - `init_flax_` draws flax's initializers from an explicit generator.
+
+`forward_sharded` runs the same model under a ('data', 'space') device
+mesh (`core/mesh.py`) as one autograd graph: the batch over the data
+groups, the height over the space shards with halo rows, and train-mode
+BatchNorm with the statistics of the whole batch (the JAX package's train
+step under GSPMD).
 """
 
 from __future__ import annotations
@@ -42,6 +48,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from unetdc_tpu_torch.core import mesh as M
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9          # flax convention: ra = m * ra + (1 - m) * batch
@@ -106,35 +114,56 @@ def batch_stats(x32: torch.Tensor, sample_mask: torch.Tensor
 PHASE_MIN_DILATION = 16
 
 
-def _conv_phases(x: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
+def _conv_phases(x: torch.Tensor, w: torch.Tensor, d: int,
+                 halo: bool = False) -> torch.Tensor:
     """A 3x3 conv with dilation d and padding d, computed as an undilated
     3x3 conv (padding 1) on each of the d*d phase sub-images x[..., i::d,
     j::d] stacked into the batch: the same taps and zeros for every output,
     so the same arithmetic. cuDNN's dilated kernels are slow where the
     dilation is a large share of the map (the bottleneck's backward at
-    dilation 16 on 32x32 maps). Channels-last memory throughout."""
+    dilation 16 on 32x32 maps). Channels-last memory throughout.
+
+    With `halo`, x is a row shard carrying d real rows above and below its
+    output rows (`forward_sharded`): only the width is padded, and x's
+    height (rows + 2d, not always a multiple of d) is first padded with
+    zero rows at the bottom to one; the output rows those feed are
+    dropped."""
     b, c, h, wd = x.shape
+    out_h = h - 2 * d if halo else h
+    if h % d:
+        x = F.pad(x, (0, 0, 0, -h % d))
+        h = x.shape[2]
     xs = (x.permute(0, 2, 3, 1).reshape(b, h // d, d, wd // d, d, c)
           .permute(0, 2, 4, 1, 3, 5).reshape(b * d * d, h // d, wd // d, c))
-    y = F.conv2d(xs.permute(0, 3, 1, 2), w, None, 1, 1)
-    o = y.shape[1]
-    return (y.permute(0, 2, 3, 1).reshape(b, d, d, h // d, wd // d, o)
-            .permute(0, 3, 1, 4, 2, 5).reshape(b, h, wd, o)
-            .permute(0, 3, 1, 2))
+    y = F.conv2d(xs.permute(0, 3, 1, 2), w, None, 1, (0 if halo else 1, 1))
+    o, hs = y.shape[1], y.shape[2]
+    y = (y.permute(0, 2, 3, 1).reshape(b, d, d, hs, wd // d, o)
+         .permute(0, 3, 1, 4, 2, 5).reshape(b, hs * d, wd, o)
+         .permute(0, 3, 1, 2))
+    return y if hs * d == out_h else y[:, :, :out_h]
+
+
+def _conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, d: int,
+             halo: bool = False) -> torch.Tensor:
+    """3x3 conv (dilation d) plus bias, in x's dtype: padding d all round,
+    or with `halo` (x a row shard with d real rows above and below) the
+    width only. Dilations from PHASE_MIN_DILATION run as `_conv_phases`."""
+    if d >= PHASE_MIN_DILATION and x.shape[-1] % d == 0 \
+            and (halo or x.shape[-2] % d == 0):
+        y = _conv_phases(x, w, d, halo)
+    else:
+        y = F.conv2d(x, w, None, 1, (0 if halo else d, d), d)
+    return y + b[:, None, None]
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype
           ) -> torch.Tensor:
     """flax nn.Conv(dtype=...): input and kernel cast to `dtype`, product
     in `dtype`, bias (cast) added after."""
-    x, w = x.to(dtype), conv.weight.to(dtype)
-    d = conv.dilation[0]
-    if d >= PHASE_MIN_DILATION and x.shape[-2] % d == 0 \
-            and x.shape[-1] % d == 0:
-        y = _conv_phases(x, w, d)
-    else:
-        y = F.conv2d(x, w, None, conv.stride, conv.padding, conv.dilation)
-    return y + conv.bias.to(dtype)[:, None, None]
+    x, w, b = x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype)
+    if conv.kernel_size[0] == 1:
+        return F.conv2d(x, w) + b[:, None, None]
+    return _conv3x3(x, w, b, conv.dilation[0])
 
 
 class DoubleConv(nn.Sequential):
@@ -248,6 +277,210 @@ class UNetDC(_UNetBase):
     (reference models/model_2.py)."""
 
     dilations = (1, 2, 4, 8, 16)
+
+
+# ------------------------------------------------------------ sharded --
+def sharded_batch_stats(parts, n: int, device: torch.device):
+    """`batch_stats` of a batch held in shards: `parts` is a list of
+    (x32 (b, C, h, W) on its device, keep (b,) bool on that device or
+    None), `n` the number of kept pixels in all. The per-channel mean and
+    biased variance come from two cross-shard sums on `device` (the masked
+    sums of x, then of (x - mean)^2: flax's two-pass variance); the mean
+    goes back to every shard's device between the two. Differentiable, so
+    the backward is autograd's. Returns (mean, var, each shard centred)."""
+    def masked(t, keep):
+        return t if keep is None else torch.where(
+            keep[:, None, None, None], t, 0)
+
+    mean = M.reduce_to([masked(x, k).sum((0, 2, 3)) for x, k in parts],
+                       device) / n
+    means = {x.device: mean.to(x.device) for x, _ in parts}
+    cen = [x - means[x.device][:, None, None] for x, _ in parts]
+    var = M.reduce_to([masked(c * c, k).sum((0, 2, 3))
+                       for c, (_, k) in zip(cen, parts)], device) / n
+    return mean, var, cen
+
+
+class _StepShards:
+    """The per-step state of `forward_sharded`: each weight as one
+    differentiable copy per distinct device of the mesh (convs cast to the
+    compute dtype), and the kept samples of each data group."""
+
+    def __init__(self, model: "_UNetBase", mesh: M.Mesh, n_space: int,
+                 batch: int, sample_mask: Optional[torch.Tensor]):
+        self.model = model
+        self.dt = model.compute_dtype
+        self.bn_dt = torch.promote_types(self.dt, torch.float32)
+        self.first = mesh.first
+        self.train = model.training
+        devs = mesh.distinct()
+        # the master leaf itself on its own device; a copy elsewhere, whose
+        # backward adds that device's gradient into the leaf
+        self.w: Dict[torch.device, Dict[str, torch.Tensor]] = {
+            d: {} for d in devs}
+        for name, mod in model.named_modules():
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+                ts, dt = ("weight", "bias"), self.dt
+            elif isinstance(mod, BatchNorm):
+                ts, dt = ("weight", "bias") + (() if self.train else (
+                    "running_mean", "running_var")), None
+            else:
+                continue
+            for t in ts:
+                for d in devs:
+                    self.w[d][f"{name}.{t}"] = getattr(mod, t).to(d, dt)
+        self.keep, self.n_kept = None, batch
+        if sample_mask is not None:
+            km = sample_mask.detach().to("cpu", torch.bool)
+            self.n_kept = int(km.sum())
+            self.keep = [{d: k.to(d) for d in mesh.grid[g][:n_space]}
+                         for g, k in enumerate(
+                             km.chunk(mesh.shape[M.DATA_AXIS]))]
+
+    def _keep(self, g: int, t: torch.Tensor) -> Optional[torch.Tensor]:
+        return None if self.keep is None else self.keep[g][t.device]
+
+    def conv(self, groups, key: str, d: int):
+        """Each group's 3x3 conv: whole, or per shard on its own halo of d
+        rows (zeros past the image)."""
+        out = []
+        for shards in groups:
+            halo = len(shards) > 1
+            out.append([_conv3x3(t, self.w[t.device][key + ".weight"],
+                                 self.w[t.device][key + ".bias"], d, halo)
+                        for t in (M.halo(shards, d, 2) if halo else shards)])
+        return out
+
+    def bn(self, groups, key: str):
+        """BatchNorm of every shard of every group. Train mode: the
+        statistics of the whole batch (`sharded_batch_stats`), returned for
+        the running update. Eval mode: each shard normalised alone with
+        the running statistics."""
+        if not self.train:
+            return [[F.batch_norm(
+                t, *(self.w[t.device][f"{key}.{n}"] for n in (
+                    "running_mean", "running_var", "weight", "bias")),
+                False, 0.0, BN_EPS) for t in shards]
+                for shards in groups], ()
+        parts = [(t.to(self.bn_dt), self._keep(g, t))
+                 for g, shards in enumerate(groups) for t in shards]
+        rows = sum(t.shape[2] for t in groups[0])
+        mean, var, cen = sharded_batch_stats(
+            parts, self.n_kept * rows * groups[0][0].shape[3], self.first)
+        mul = {d: torch.rsqrt(var.to(d) + BN_EPS) * w[key + ".weight"]
+               for d, w in self.w.items()}
+        out = iter((v * mul[v.device][:, None, None]
+                    + self.w[v.device][key + ".bias"][:, None, None]
+                    ).to(self.dt) for v in cen)
+        return [[next(out) for _ in shards] for shards in groups], \
+            (mean.detach(), var.detach())
+
+    def double_conv(self, name: str, d: int, groups):
+        stats = []
+        for ci, bi in (("0", "1"), ("3", "4")):
+            groups, st = self.bn(self.conv(groups, f"{name}.{ci}", d),
+                                 f"{name}.{bi}")
+            stats += st
+            groups = [[torch.relu(t) for t in s] for s in groups]
+        return groups, stats
+
+    def block(self, name: str, d: int, groups):
+        """One double conv over the mesh; with `remat`, recomputed in the
+        backward as one function of all its shards (non-reentrant
+        checkpoint: the cross-device copies and reductions rerun). The
+        running statistics are updated once, on the master buffers."""
+        if self.model.remat and torch.is_grad_enabled():
+            sizes = [len(s) for s in groups]
+
+            def run(*flat):
+                it = iter(flat)
+                out, stats = self.double_conv(
+                    name, d, [[next(it) for _ in range(k)] for k in sizes])
+                return [t for s in out for t in s], stats
+
+            flat, stats = checkpoint(run, *[t for s in groups for t in s],
+                                     use_reentrant=False,
+                                     preserve_rng_state=False)
+            it = iter(flat)
+            out = [[next(it) for _ in range(k)] for k in sizes]
+        else:
+            out, stats = self.double_conv(name, d, groups)
+        if self.train:
+            blk = getattr(self.model, name)
+            blk[1].update_running(*stats[:2])
+            blk[4].update_running(*stats[2:])
+        return out
+
+    def up(self, key: str, groups):
+        return [[F.conv_transpose2d(t, self.w[t.device][key + ".weight"],
+                                    None, stride=2)
+                 + self.w[t.device][key + ".bias"][:, None, None]
+                 for t in shards] for shards in groups]
+
+    def head(self, t: torch.Tensor) -> torch.Tensor:
+        w = self.w[t.device]
+        out = (F.conv2d(t, w["out_conv.weight"]) + w["out_conv.bias"][
+            :, None, None]).to(self.bn_dt)
+        if self.model.apply_sigmoid:
+            out = torch.sigmoid(out)
+        return out.permute(0, 2, 3, 1)
+
+
+def forward_sharded(model: "_UNetBase", x: torch.Tensor, mesh: M.Mesh,
+                    shard_space: bool = False,
+                    sample_mask: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """`model(x, sample_mask)` under a ('data', 'space') mesh, in train or
+    eval mode, as one autograd graph across the mesh (the JAX package's
+    train step under GSPMD).
+
+    The master weights stay on `model`'s device; each distinct device of
+    the mesh computes with its own differentiable copy, so the backward
+    sums every device's gradient into the master leaves. The batch splits
+    over the data groups (B must divide: the trainer pads first); with
+    `shard_space` each group's height splits over its space shards (H must
+    divide by 2 * n_space, else ValueError):
+    - every 3x3 conv runs per shard on its own halo of `dilation` rows of
+      its input, zeros past the image (the dilation-16 convs as phase
+      convs on the haloed shard);
+    - pools and upconvs are local; a level whose pool would cut a seam
+      (odd rows per shard) is gathered onto the group's first device, the
+      levels below run whole there, and the decoder splits again at the
+      first level whose encoder ran sharded;
+    - train-mode BatchNorm normalises with the statistics of the whole
+      batch over the samples `sample_mask` (B,) keeps, and updates the
+      running statistics once; eval mode normalises each shard alone.
+    Returns (B, H, W, out) f32 logits (probabilities with
+    `apply_sigmoid`) on `mesh.first`, in batch order."""
+    n_data = mesh.shape[M.DATA_AXIS]
+    n_space = mesh.shape[M.SPACE_AXIS] if shard_space else 1
+    B, H = x.shape[0], x.shape[1]
+    M.check_batch(mesh, B)
+    if H % (2 * n_space):
+        raise ValueError(f"height {H} does not split into {n_space} row "
+                         "shards of an even number of rows")
+    st = _StepShards(model, mesh, n_space, B, sample_mask)
+    xc = x.permute(0, 3, 1, 2).to(model.compute_dtype)
+    cur = [M.split(xg, n_space, 2, mesh.grid[g][:n_space])
+           for g, xg in enumerate(xc.chunk(n_data))]
+    skips = []
+    for i, name in enumerate(("enc1", "enc2", "enc3", "enc4",
+                              "bottleneck")):
+        if i:
+            cur = [[F.max_pool2d(t, 2) for t in M.gather_if_odd(s, 2)]
+                   for s in cur]
+        cur = st.block(name, model.dilations[i], cur)
+        skips.append(cur)
+    skips.pop()
+    for n in (4, 3, 2, 1):
+        skip = skips.pop()
+        up = [u if len(u) == len(s)
+              else M.split(u[0], len(s), 2, [t.device for t in s])
+              for u, s in zip(st.up(f"upconv{n}", cur), skip)]
+        cur = st.block(f"dec{n}", 1, [
+            [torch.cat(p, 1) for p in zip(u, s)] for u, s in zip(up, skip)])
+    return torch.cat([torch.cat([st.head(t).to(mesh.first) for t in s], 1)
+                      for s in cur])
 
 
 # flax variance_scaling "truncated_normal": a standard normal truncated to

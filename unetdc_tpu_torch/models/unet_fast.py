@@ -22,7 +22,7 @@ batch split over the data groups and the height over the space shards.
 from __future__ import annotations
 
 import sys
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -127,49 +127,12 @@ def forward_folded(fp: Dict[str, Any], x: torch.Tensor,
 
 
 # ------------------------------------------------------------ sharded --
-def _zeros_like_rows(s: torch.Tensor, dim: int, n: int) -> torch.Tensor:
-    """n zero rows (along `dim`) in s's type, device and memory format."""
-    shape = list(s.shape)
-    shape[dim] = n
-    z = s.new_zeros(shape)
-    if s.dim() == 4 and not s.is_contiguous() and \
-            s.is_contiguous(memory_format=torch.channels_last):
-        z = z.contiguous(memory_format=torch.channels_last)
-    return z
-
-
-def halo(shards: Sequence[torch.Tensor], n: int, dim: int
-         ) -> List[torch.Tensor]:
-    """Each shard with n rows (along `dim`) from the shards above and below
-    it prepended and appended, taken from as many neighbours as n needs,
-    and zeros past the global edges (SAME padding), as the JAX package's
-    `lax.ppermute` halo. Rows cross to the shard's device with a copy;
-    every result is a new tensor (torch.cat), aliasing no shard."""
-    out = []
-    for i, s in enumerate(shards):
-        parts = []
-        for side in (-1, 1):
-            need, j, got = n, i + side, []
-            while need > 0 and 0 <= j < len(shards):
-                src = shards[j]
-                k = min(need, src.shape[dim])
-                rows = (src.narrow(dim, src.shape[dim] - k, k) if side < 0
-                        else src.narrow(dim, 0, k))
-                got.append(rows.to(s.device, non_blocking=True))
-                need, j = need - k, j + side
-            if need > 0:  # past the global edge
-                got.append(_zeros_like_rows(s, dim, need))
-            parts.append(got[::-1] if side < 0 else got)
-        out.append(torch.cat(parts[0] + [s] + parts[1], dim))
-    return out
-
-
 def _conv_sharded(shards, weights, dil):
     """ReLU(conv3x3) of a height-sharded NCHW activation: each shard gets
     its own halo of `dil` rows and pads only its width. `weights`: (k, b)
     of each shard's device."""
     return [torch.relu(F.conv2d(s, k, b, padding=(0, dil), dilation=dil))
-            for s, (k, b) in zip(halo(shards, dil, 2), weights)]
+            for s, (k, b) in zip(M.halo(shards, dil, 2), weights)]
 
 
 def _dc_sharded(shards, ps, dil=1):
@@ -251,7 +214,7 @@ def _forward_group(fps, x, dilations, conv_pool, head):
     stem = _conv_sharded(xs, [(fp["enc1"]["k0"], fp["enc1"]["b0"])
                               for fp in fps], 1)
     enc1, pooled = [], []
-    for s, fp in zip(halo([_nhwc(t) for t in stem], 1, 1), fps):
+    for s, fp in zip(M.halo([_nhwc(t) for t in stem], 1, 1), fps):
         y, p = conv_pool(s, fp["k1"]["w"], fp["k1"]["b"], ext=True)
         enc1.append(y)
         pooled.append(p.permute(0, 3, 1, 2))
@@ -264,8 +227,10 @@ def _forward_group(fps, x, dilations, conv_pool, head):
         if name == "bottleneck":
             break
         skips.append((cur, sharded))
-        if sharded and cur[0].shape[2] % 2:
-            cur, sharded = M.gather(cur, 2, devs[0]), False
+        if sharded:
+            cur = M.gather_if_odd(cur, 2)
+            if len(cur) == 1:
+                cur, sharded = cur[0], False
         cur = ([F.max_pool2d(t, 2) for t in cur] if sharded
                else F.max_pool2d(cur, 2))
     # dec4 .. dec2: a level runs sharded where its encoder level did
@@ -285,5 +250,6 @@ def _forward_group(fps, x, dilations, conv_pool, head):
                if sharded else _dc(torch.cat([up, skip], 1), fps[0][name]))
     out = [head(a, b, fp["head"], ext=True, edge_flags=(i == 0, i == S - 1))
            for i, (a, b, fp) in enumerate(zip(
-               halo([_nhwc(t) for t in cur], 1, 1), halo(enc1, 2, 1), fps))]
+               M.halo([_nhwc(t) for t in cur], 1, 1), M.halo(enc1, 2, 1),
+               fps))]
     return M.gather(out, 1, devs[0])

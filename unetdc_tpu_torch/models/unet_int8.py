@@ -48,6 +48,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from unetdc_tpu_torch.core import mesh as M
+
 # One activation scale per quantization point: "<blk>a" = the block's conv0
 # output, "<blk>" = the block output, "up*" = transposed-conv outputs.
 TAGS: Tuple[str, ...] = (
@@ -299,22 +301,27 @@ def _int_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, w)[:m]
 
 
-def _im2col(x: torch.Tensor, dil: int, kp: int) -> torch.Tensor:
+def _im2col(x: torch.Tensor, dil: int, kp: int,
+            halo: bool = False) -> torch.Tensor:
     """(B, H, W, C) int8 -> (B*H*W, kp) rows of the 3x3 neighbourhood at
     dilation `dil` (taps (ky, kx) outer, channels inner; zero outside the
-    image and in the padding columns past 9*C). Channel runs that fill
-    8-byte words are copied as int64, twice as fast as byte copies."""
+    image and in the padding columns past 9*C). With `halo`, x is a row
+    shard carrying `dil` real rows above and below its H - 2*dil output
+    rows, and only its width is padded. Channel runs that fill 8-byte
+    words are copied as int64, twice as fast as byte copies."""
     b, h, w, c = x.shape
-    xp = x.new_zeros(b, h + 2 * dil, w + 2 * dil, c)
-    xp[:, dil:dil + h, dil:dil + w] = x
-    cols = (x.new_zeros if kp > 9 * c else x.new_empty)(b, h, w, kp)
+    oh = h - 2 * dil if halo else h
+    xp = x.new_zeros(b, oh + 2 * dil, w + 2 * dil, c)
+    top = 0 if halo else dil
+    xp[:, top:top + h, dil:dil + w] = x
+    cols = (x.new_zeros if kp > 9 * c else x.new_empty)(b, oh, w, kp)
     src, dst, cw = xp, cols, c
     if c % 8 == 0:
         src, dst, cw = xp.view(torch.int64), cols.view(torch.int64), c // 8
     for t, (ky, kx) in enumerate(product(range(3), range(3))):
-        dst[..., t * cw:(t + 1) * cw] = src[:, ky * dil:ky * dil + h,
+        dst[..., t * cw:(t + 1) * cw] = src[:, ky * dil:ky * dil + oh,
                                             kx * dil:kx * dil + w]
-    return cols.view(b * h * w, kp)
+    return cols.view(b * oh * w, kp)
 
 
 def _requant(r: torch.Tensor, m: torch.Tensor, c: torch.Tensor,
@@ -325,12 +332,13 @@ def _requant(r: torch.Tensor, m: torch.Tensor, c: torch.Tensor,
     return y.to(torch.float32).round_().clamp_(lo, 127.0).to(torch.int8)
 
 
-def _conv_q(x: torch.Tensor, p: Dict[str, Any], j: int, dil: int
-            ) -> torch.Tensor:
+def _conv_q(x: torch.Tensor, p: Dict[str, Any], j: int, dil: int,
+            halo: bool = False) -> torch.Tensor:
     b, h, w, _ = x.shape
     wt = p[f"w{j}"]
-    r = _int_mm(_im2col(x, dil, wt.shape[0]), wt)[:, :p[f"n{j}"]]
-    return _requant(r, p[f"m{j}"], p[f"c{j}"], 0.0).view(b, h, w, -1)
+    r = _int_mm(_im2col(x, dil, wt.shape[0], halo), wt)[:, :p[f"n{j}"]]
+    return _requant(r, p[f"m{j}"], p[f"c{j}"], 0.0).view(
+        b, h - 2 * dil if halo else h, w, -1)
 
 
 def _dc_q(x, p, dil=1):
@@ -371,9 +379,88 @@ def forward_int8(dp: Dict[str, Any], x: torch.Tensor,
         for n, name, _, _ in _DEC + ((1, "dec1", None, None),):
             up = _upconv_q(dec, dp[f"upconv{n}"])
             dec = _dc_q(torch.cat([up, skips.pop()], -1), dp[name])
-        b, h, w, c = dec.shape
-        p = dp["out_conv"]
-        r = _int_mm(dec.reshape(-1, c), p["w"])[:, :p["n"]]
-        out = torch.addcmul(p["b"], r.to(torch.float32), p["sw"]
-                            ).to(torch.float32).view(b, h, w, -1)
-        return torch.sigmoid(out) if apply_sigmoid else out
+        return _out_conv_q(dec, dp["out_conv"], apply_sigmoid)
+
+
+def _out_conv_q(x: torch.Tensor, p: Dict[str, Any], apply_sigmoid: bool
+                ) -> torch.Tensor:
+    """The 1x1 head, dequantized to f32 (and the sigmoid)."""
+    b, h, w, c = x.shape
+    r = _int_mm(x.reshape(-1, c), p["w"])[:, :p["n"]]
+    out = torch.addcmul(p["b"], r.to(torch.float32), p["sw"]
+                        ).to(torch.float32).view(b, h, w, -1)
+    return torch.sigmoid(out) if apply_sigmoid else out
+
+
+def _dc_q_shards(shards, ps, dil=1):
+    """`_dc_q` of one data group's row shards (`ps`: each shard's params),
+    each conv on its own halo of `dil` int8 rows, zeros (the quantised
+    zero) past the image; a one-element list is the whole image."""
+    for j in (0, 1):
+        halo = len(shards) > 1
+        shards = [_conv_q(t, p, j, dil, halo) for t, p in zip(
+            M.halo(shards, dil, 1) if halo else shards, ps)]
+    return shards
+
+
+def _forward_int8_group(dps, x, d, apply_sigmoid):
+    """One data group's `forward_int8`, its height split over the devices
+    of `dps` (each shard's params, on its device). Pools, upconvs and
+    out_conv are local; a level whose pool would cut a seam is gathered
+    onto the first device, as in `unet_fast._forward_group`. Every product
+    is exact int32 and every scale static, so the result equals
+    `forward_int8` byte for byte."""
+    devs = [dp["enc1"]["w0"].device for dp in dps]
+    xq = torch.clamp(torch.round(x.to(torch.float32) * dps[0]["in_inv"]),
+                     -127.0, 127.0).to(torch.int8)
+    cur = _dc_q_shards(M.split(xq, len(dps), 1, devs),
+                       [dp["enc1"] for dp in dps])
+    skips = [cur]
+    for name, dil in zip(_ENC, d[1:]):
+        cur = [_pool_q(t) for t in M.gather_if_odd(cur, 1)]
+        cur = _dc_q_shards(cur, [dp[name] for dp in dps], dil)
+        skips.append(cur)
+    cur = skips.pop()
+    for n, name, _, _ in _DEC + ((1, "dec1", None, None),):
+        skip = skips.pop()
+        up = [_upconv_q(t, dp[f"upconv{n}"]) for t, dp in zip(cur, dps)]
+        if len(up) < len(skip):
+            up = M.split(up[0], len(skip), 1, devs)
+        cur = _dc_q_shards([torch.cat(p, -1) for p in zip(up, skip)],
+                           [dp[name] for dp in dps])
+    out = [_out_conv_q(t, dp["out_conv"], apply_sigmoid)
+           for t, dp in zip(cur, dps)]
+    return M.gather(out, 1, devs[0])
+
+
+def forward_int8_spmd(replicas: Dict[torch.device, Dict[str, Any]],
+                      x: torch.Tensor,
+                      dilations: Sequence[int] = (1, 2, 4, 8, 16), *,
+                      mesh: M.Mesh, shard_space: bool = True,
+                      apply_sigmoid: bool = True) -> torch.Tensor:
+    """`forward_int8` under a ('data', 'space') mesh, as
+    `unet_fast.forward_folded_spmd` runs the float forward: `replicas`
+    maps each distinct device to its `prepare_int8_params` copy; the batch
+    splits over the data groups and, with `shard_space`, each group's
+    height over its space shards (`_forward_int8_group`). Output: (B, H,
+    W, n_out) f32 on x's device in batch order, byte-equal to
+    `forward_int8`. Shapes that do not divide (B % n_data, H % (2 *
+    n_space)) run `forward_int8` on the mesh's first device, as the float
+    forward routes them."""
+    d = tuple(dilations)
+    if d[0] != 1:
+        raise ValueError("int8 path requires an undilated enc1")
+    nd = mesh.shape[M.DATA_AXIS]
+    ns = mesh.shape[M.SPACE_AXIS] if shard_space else 1
+    if x.shape[0] % nd or x.shape[1] % (2 * ns):
+        return forward_int8(replicas[mesh.first], x.to(mesh.first), d,
+                            apply_sigmoid).to(x.device)
+    outs = []
+    with torch.no_grad():
+        for g, xg in enumerate(M.split_batch(mesh, x)):
+            devs = mesh.grid[g][:ns]
+            outs.append(
+                forward_int8(replicas[devs[0]], xg, d, apply_sigmoid)
+                if ns == 1 else _forward_int8_group(
+                    [replicas[dv] for dv in devs], xg, d, apply_sigmoid))
+    return M.gather(outs, 0, x.device)

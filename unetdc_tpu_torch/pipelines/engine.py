@@ -12,8 +12,9 @@ transfer calls on its TPU link; that is not needed here, so outputs travel
 as they are.
 
 `quantize="int8"` runs the post-training-quantized forward instead
-(`models/unet_int8.py`, no K1/K2), calibrated from a sidecar, an explicit
-`calibrate_int8` call or, failing both, the first batch.
+(`models/unet_int8.py`, no K1/K2; under a mesh `forward_int8_spmd`),
+calibrated from a sidecar, an explicit `calibrate_int8` call or, failing
+both, the first batch.
 
 Under a ('data', 'space') mesh (`core/mesh.py`) the params are replicated
 once per distinct device and each batch splits over the data groups: each
@@ -56,10 +57,6 @@ from unetdc_tpu_torch.ops.resize import resize_linear_u8_cv2exact
 from unetdc_tpu_torch.ops.rolling_ball import rolling_ball_correction
 from unetdc_tpu_torch.utils.profiling import stage_timer
 
-INT8_SHARD_SPACE = ("int8 with shard_space is not ported: the int8 forward "
-                    "runs data-parallel only (ROADMAP queue A, Multi-GPU)")
-
-
 def grayscale_view(imgs_u8: np.ndarray) -> np.ndarray:
     """A (B,H,W) single-channel view when every pixel of the (B,H,W,3)
     batch has all channels equal, else the input unchanged. The engine
@@ -95,7 +92,7 @@ class QuantifyEngine:
         devices (`device` is ignored) and each batch must divide over its
         data groups, as in the JAX engine.
       shard_space: also split the forward's height over the mesh's space
-        axis (not with int8).
+        axis (the float or the int8 forward).
     """
 
     # subclasses set this to receive the pre-sieve component table
@@ -117,8 +114,6 @@ class QuantifyEngine:
         self._dilations = tuple(model_cls.dilations)
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
-        if quantize == "int8" and mesh is not None and shard_space:
-            raise ValueError(INT8_SHARD_SPACE)
         if quantize == "int8" and (self._dilations[0] != 1 or img_size % 2):
             raise ValueError("int8 path requires an undilated enc1 and an "
                              "even img_size")
@@ -164,18 +159,14 @@ class QuantifyEngine:
         mesh = mesh or self.mesh
         if mesh is None:
             x = x.to(self.device)
-        if self.quantize == "int8":  # data-parallel only
+        if self.quantize == "int8":
             if self.params is None:
                 self.calibrate_int8(x, preprocessed=True)
             if mesh is None:
                 return qi.forward_int8(self.params, x, self._dilations)
-            if x.shape[0] % mesh.shape[M.DATA_AXIS]:
-                return qi.forward_int8(self.replicas[mesh.first],
-                                       x.to(mesh.first), self._dilations
-                                       ).to(x.device)
-            return M.gather([qi.forward_int8(self.replicas[p.device], p,
-                                             self._dilations)
-                             for p in M.split_batch(mesh, x)], 0, x.device)
+            return qi.forward_int8_spmd(self.replicas, x, self._dilations,
+                                        mesh=mesh,
+                                        shard_space=self.shard_space)
         if mesh is None:
             return forward_folded(self.params, x, self._dilations,
                                   self._conv_pool, self._head)

@@ -26,8 +26,19 @@ of either package resumes from the other's files.
 
 The JAX trainer's `step_chunk` (fusing steps into one lax.scan dispatch to
 hide the TPU link's per-call latency) has no counterpart: the port runs one
-step per batch with the same numerics. Multi-GPU training (`mesh`,
-`shard_space`) is not ported yet.
+step per batch with the same numerics.
+
+Under a ('data', 'space') mesh (`core/mesh.py`) one process drives every
+device, as the JAX trainer's single controller does: the master weights,
+the Adam state, the device sample bank, the preprocess and the augment
+live on the mesh's first device; a ragged batch is padded to the data axis
+with zero-weight replicas before preprocessing; the step runs
+`models/unet.py::forward_sharded` (batch over the data groups, with
+`shard_space` the height over the space shards, BatchNorm statistics of
+the whole batch) as one autograd graph, whose backward sums every device's
+gradient into the master weights; the loss and the metrics are computed
+once, on the gathered logits, exactly as on one device. Checkpoints hold
+the master weights, so a run resumes across packages and across meshes.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ from unetdc_tpu_torch.checkpoint.native import (BestMetricCheckpointer,
                                                 load_checkpoint,
                                                 load_metadata,
                                                 save_checkpoint)
+from unetdc_tpu_torch.core import mesh as M
 from unetdc_tpu_torch.data.augment import augment_batch
 from unetdc_tpu_torch.data.dataset import SegmentationData
 from unetdc_tpu_torch.data.prefetch import Prefetcher
@@ -56,15 +68,11 @@ from unetdc_tpu_torch.device import resolve_device
 from unetdc_tpu_torch.losses import confusion_counts, dice_coef
 from unetdc_tpu_torch.losses.losses import (combined_loss_from_logits,
                                             focal_dice_loss_from_logits)
-from unetdc_tpu_torch.models.unet import UNet, UNetDC, init_flax_
+from unetdc_tpu_torch.models.unet import (UNet, UNetDC, forward_sharded,
+                                          init_flax_)
 from unetdc_tpu_torch.ops.resize import (resize_linear_u8_cv2exact,
                                          resize_nearest)
 from unetdc_tpu_torch.ops.rolling_ball import rolling_ball_correction
-
-MULTI_GPU = ("multi-GPU training (a device mesh, data parallelism, "
-             "sharding the image height) is not ported yet: ROADMAP queue A, "
-             "Multi-GPU")
-
 
 @dataclasses.dataclass
 class TrainConfig:
@@ -91,7 +99,8 @@ class TrainConfig:
     save_last: bool = True
     remat: bool = False                 # activation checkpointing
     history_jsonl: Optional[str] = None  # structured per-epoch metrics log
-    shard_space: bool = False           # multi-GPU only: refused here
+    # under a mesh, also shard the image height over its 'space' axis
+    shard_space: bool = False
     # accepted for compatibility with the JAX trainer, which fuses this many
     # steps into one dispatch; the port runs one step per batch
     step_chunk: int = 8
@@ -103,13 +112,22 @@ class TrainConfig:
 
 class Trainer:
     """UNet/UNetDC trainer on one device ("cuda" unless asked otherwise;
-    a missing card is an error)."""
+    a missing card is an error) or, given a `core.mesh.Mesh`, on its
+    devices (`device` is then ignored; every device must be present)."""
 
-    def __init__(self, config: TrainConfig, mesh=None, device="cuda"):
-        if mesh is not None or config.shard_space:
-            raise NotImplementedError(MULTI_GPU)
+    def __init__(self, config: TrainConfig, mesh: Optional[M.Mesh] = None,
+                 device="cuda"):
         self.cfg = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            for d in mesh.distinct():
+                resolve_device(d)
+                if d.type == "cuda" and d.index >= torch.cuda.device_count():
+                    raise RuntimeError(f"unetdc_tpu_torch: the mesh needs "
+                                       f"{d}, but CUDA shows "
+                                       f"{torch.cuda.device_count()} cards")
+            device = mesh.first
+        self.device = M.norm_device(resolve_device(device))
         if self.device.type == "cuda":
             # shapes are fixed for a run: let cuDNN time its algorithms once
             torch.backends.cudnn.benchmark = True
@@ -195,16 +213,31 @@ class Trainer:
         return x, resize_nearest(masks_u8, size).to(torch.float32)
 
     def _device_batch(self, batch):
-        """(x, m (B,S,S,1), valid (B,) f32 weights, valid as numpy)."""
+        """(x, m (B,S,S,1), valid (B,) f32 weights, valid as numpy). Under
+        a mesh a ragged batch is first padded to the data axis with
+        replicas of weight 0 (the JAX order: pad, preprocess, augment)."""
         imgs, masks = self._stack_batch(batch)
         n_valid = int(batch.get("n_valid", imgs.shape[0]))
         valid = np.ones(imgs.shape[0], np.float32)
         valid[n_valid:] = 0.0
+        if self.mesh is not None:
+            imgs, masks, valid = M.pad_to_data_axis(imgs, masks, valid,
+                                                    self.mesh)
         x, m = self.preprocess(imgs, masks)
         return (x, m[..., None], torch.from_numpy(valid).to(self.device),
                 valid)
 
     # ------------------------------------------------------------ steps --
+    def _forward(self, x, keep=None):
+        """Logits of the model in its current mode, on one device or over
+        the mesh; `keep` (B,) bool leaves samples out of the batch
+        statistics."""
+        if self.mesh is None:
+            return self.model(x, sample_mask=None if keep is None
+                              else keep.to(self.device))
+        return forward_sharded(self.model, x, self.mesh,
+                               self.cfg.shard_space, keep)
+
     def _metrics(self, probs, masks, valid):
         pred = (probs > self.cfg.metric_thresh).to(torch.float32)
         dice = dice_coef(masks, pred, weights=valid)
@@ -219,8 +252,8 @@ class Trainer:
         self.model.train()
         keep = None
         if valid_np is not None and not valid_np.all():
-            keep = torch.from_numpy(valid_np > 0.5).to(self.device)
-        logits = self.model(x, sample_mask=keep)
+            keep = torch.from_numpy(valid_np > 0.5)
+        logits = self._forward(x, keep)
         loss = self.loss_fn(logits, m, valid)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
@@ -233,12 +266,12 @@ class Trainer:
     def predict_probs(self, x: torch.Tensor) -> torch.Tensor:
         """Eval-mode probabilities (B,S,S,1) of preprocessed images."""
         self.model.eval()
-        return torch.sigmoid(self.model(x))
+        return torch.sigmoid(self._forward(x))
 
     @torch.no_grad()
     def eval_step(self, x, m, valid):
         self.model.eval()
-        logits = self.model(x)
+        logits = self._forward(x)
         probs = torch.sigmoid(logits)
         loss = self.loss_fn(logits, m, valid)
         dice, correct = self._metrics(probs, m, valid)
