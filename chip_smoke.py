@@ -19,7 +19,23 @@ Phases, each printing one JSON line:
                device_fetch, host_write_artifacts, host_csv: `host_split_s`)
                and a third run with --profile (its stage report and the
                torch.profiler trace's size: `profile`);
-  4. kernels — K1, K2, K3 at the shapes the CLI run gave them (K3 at both
+  3b. gui    — (between the counted and the profiled CLI run: before the
+               process's first torch.profiler session, since a CUDA child
+               process started after one leaves the later sessions without
+               device activity) the Qt GUI (gui/qt_app.py, --device cuda)
+               headless under
+               tests/fake_pyside6.py: the 16 images, the decisive
+               checkpoint, batch 8, overlays on, Excel and histogram off
+               (the card's image has neither xlsxwriter nor matplotlib);
+               its click spawns the port CLI in a child process on the
+               card: no message box, "All done" in the log pane, the
+               results tables and overlay gallery filled; then the frozen
+               entry (gui/entry.py) dispatching `--cli
+               quantify_droplets_batch` in-process, counted (K1, K2, K3
+               launched: the `gui_entry` path); both runs' summary and
+               droplet CSVs and masks byte-equal to an in-process CLI run
+               of the GUI's argv.
+ 4. kernels — K1, K2, K3 at the shapes the CLI run gave them (K3 at both
                image sizes): agreement with their plain PyTorch versions,
                event time around one call (`ms`), device time from
                torch.profiler (`device_ms`: the kernels and memsets one
@@ -30,6 +46,14 @@ Phases, each printing one JSON line:
                then K3 on scipy-labelled blob batches at the overflow
                caps 8193 and 32769 and on its global-atomics path
                (`k3_overflow` line), each exactly equal to plain;
+ 4b. device_profile, forward_profile — the package's profilers
+               (utils/device_profile.py, utils/forward_profile.py) at batch
+               8, 512x512: per megastep stage the event ms, device ms and
+               idle share, int8 included, forward_mfu; the kernel forward
+               below the library forward, its K1 + K2 device time within
+               10% of the `kernels` line's, K3 in cc+regionprops; per block
+               of the forward its ms, FLOPs, traffic and bound, the rows'
+               useful FLOPs summing to forward_flops exactly.
   5. masks   — the same images through the f32 kernel path and the plain
                f32 path (TF32 off): every pixel whose 0.3 decision differs
                must sit within 1e-3 of the threshold, and at most 1e-5 of
@@ -137,8 +161,13 @@ Phases, each printing one JSON line:
  11. native_io — native_available(), libfastio vs PIL decode (PNG, JPEG
                q90) and mask-encode host ms on a 600x800 image, and
                equality with PIL's decode (JPEG within 2 levels).
-Every line of phases 6b and 9-11 carries the card's name and power
-limit.
+ 12. epoch_wall — utils/epoch_wall.py at its defaults (144 + 64 synthetic
+               512x512 images, batch 8, 4 epochs, bf16): epoch walls, the
+               device time per image of a train and an eval batch, and
+               their ratio (above 2 is reported, not failed); every number
+               finite.
+Every line of phases 3b, 4b, 6b and 9-12 carries the card's name and
+power limit.
 Then the `kernels` line (with each kernel's launches on every path), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: the script exits
@@ -312,35 +341,14 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of one fn() call: the summed durations of the
-    kernels and memsets it launches, from torch.profiler's CUDA activity,
-    one profiler session per call (so no activity is attributed to the
-    wrong call). Unlike `cuda_ms`, host enqueue time is not counted. A
-    session now and then records no device activity at all; such sessions
-    are repeated (at most `reps` times in all), never counted as 0."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Median device time of one fn() call (`utils/device_profile.py::
+    device_ms`: torch.profiler's CUDA activity, one session per call, host
+    enqueue not counted); a kernel call that records none fails."""
+    from unetdc_tpu_torch.utils.device_profile import device_ms as dev_ms
 
-    def one():
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        return sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == DeviceType.CUDA) / 1e3
-
-    for _ in range(warmup):
-        one()
-    per_call, empty = [], 0
-    while len(per_call) < reps:
-        t = one()
-        if t > 0:
-            per_call.append(t)
-        else:
-            empty += 1
-            check(empty <= reps, "torch.profiler recorded no device "
-                  f"activity in {empty} sessions")
-    return statistics.median(per_call)
+    t = dev_ms(fn, reps, warmup)
+    check(t > 0, "a kernel call recorded no device time")
+    return t
 
 
 def nbytes(*ts) -> int:
@@ -984,7 +992,8 @@ def k3_overflow_cases():
 
 def stage_times(engine, img_dir):
     """Card time of each megastep stage for one batch of each size bucket
-    (CUDA events, a synchronize between stages; warm)."""
+    (`utils/device_profile.py::timed`: CUDA events, the card synchronised
+    after each stage; warm)."""
     import numpy as np
     import torch
 
@@ -992,15 +1001,7 @@ def stage_times(engine, img_dir):
     from unetdc_tpu_torch.ops.connected_components import quantify_mask_batch
     from unetdc_tpu_torch.ops.resize import resize_linear_u8_cv2exact
     from unetdc_tpu_torch.pipelines.engine import grayscale_view
-
-    def timed(fn):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = fn()
-        b.record()
-        b.synchronize()
-        return out, a.elapsed_time(b)
+    from unetdc_tpu_torch.utils.device_profile import timed
 
     imgs = sorted(Path(img_dir).glob("*.png"))
     result = {}
@@ -1117,23 +1118,6 @@ def make_train_set(d: Path, seed: int = 16):
             mask[blob] = 255
         Image.fromarray(img).save(d / "images" / f"t{i:02d}.png")
         Image.fromarray(mask).save(d / "masks" / f"t{i:02d}.png")
-
-
-def unet_forward_flops(h: int, w: int, widths=(64, 128, 256, 512, 1024),
-                       cin: int = 3) -> int:
-    """Multiply-add FLOPs (2 per MAC) of one UNet/UNetDC forward on an
-    (h, w) image, from the conv shapes: the double 3x3 convs, the 2x2
-    stride-2 upconvs and the 1x1 head."""
-    f, c = 0, cin
-    for i, wd in enumerate(widths):                # encoder, bottleneck
-        f += 2 * (h >> i) * (w >> i) * 9 * (c * wd + wd * wd)
-        c = wd
-    for i in range(len(widths) - 2, -1, -1):       # upconv + decoder
-        wd = widths[i]
-        f += 2 * (h >> (i + 1)) * (w >> (i + 1)) * c * wd * 4
-        f += 2 * (h >> i) * (w >> i) * 9 * (2 * wd * wd + wd * wd)
-        c = wd
-    return f + 2 * h * w * c
 
 
 def plotting_modules() -> dict:
@@ -1277,6 +1261,7 @@ def train_step_timing(work: Path, warmup: int = 3, reps: int = 20):
 
     from unetdc_tpu_torch.io.images import decode_rgb
     from unetdc_tpu_torch.train.trainer import TrainConfig, Trainer
+    from unetdc_tpu_torch.utils.device_profile import forward_flops
     from PIL import Image
 
     tr = Trainer(TrainConfig(batch_size=BATCH, compute_dtype="bf16"),
@@ -1306,7 +1291,7 @@ def train_step_timing(work: Path, warmup: int = 3, reps: int = 20):
     ms = [a.elapsed_time(b) for a, b in ev]
     step_ms = statistics.median(ms)
     losses = [float(v) for v in losses]
-    flops = 3 * BATCH * unet_forward_flops(512, 512)
+    flops = 3 * forward_flops(BATCH, 512)
     r = {"phase": "train_step", "batch": BATCH, "size": "512x512",
          "dtype": "bf16", "steps": reps, "step_ms_median": step_ms,
          "step_ms_min": min(ms), "step_ms_max": max(ms),
@@ -1721,6 +1706,180 @@ def mesh_dryrun(r: dict):
                                "seconds": time.perf_counter() - t0}
 
 
+# ------------------------------------------------------------------ gui --
+
+def gui_phase(work: Path, img_dir: Path, ckpt: Path, cb, card: str):
+    """The Qt GUI (`gui/qt_app.py`, headless under tests/fake_pyside6.py)
+    on the card: its click spawns the port CLI in a child process; then the
+    frozen entry's `--cli quantify_droplets_batch` in-process, counted.
+    Each run's tables and masks are held byte-equal to an in-process CLI
+    run with the same settings (the GUI's argv)."""
+    import importlib.util
+
+    import pytest
+    import torch
+
+    from unetdc_tpu_torch.cli.quantify_droplets_batch import main as cli
+    from unetdc_tpu_torch.gui import build_batch_command, entry, qt_app
+
+    # by path: an installed package named `tests` would shadow the
+    # checkout's tests/, which has no __init__.py
+    spec = importlib.util.spec_from_file_location(
+        "fake_pyside6", ROOT / "tests" / "fake_pyside6.py")
+    fake = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fake)
+
+    def argv(out):  # the CLI's flags in the GUI's argv
+        return build_batch_command(
+            str(img_dir), str(ckpt), str(out), batch=BATCH,
+            save_overlays=True, skip_excel=True, skip_histogram=True)[3:]
+
+    def drive(app):
+        win = fake.created_main_windows[-1]
+        win.img_dir.setText(str(img_dir))
+        win.ckpt.setText(str(ckpt))
+        win.out_dir.setText(str(work / "gui_out"))
+        win.batch.setValue(BATCH)
+        win.overlays.setChecked(True)
+        win.excel.setChecked(False)  # the card's image has no xlsxwriter
+        win.hist.setChecked(False)   # nor matplotlib
+        win.run_btn.click()  # the fake QThread runs the child to its end
+
+    t0 = time.perf_counter()
+    mp = pytest.MonkeyPatch()
+    try:
+        fake.install(mp)
+        # the child CLI imports the package from this checkout
+        mp.setenv("PYTHONPATH", os.pathsep.join(
+            [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        fake.exec_hook = drive
+        try:
+            qt_app.main(["--device", "cuda"])
+        except SystemExit as e:
+            check(e.code == 0, f"the GUI exited with {e.code}")
+        gui_s = time.perf_counter() - t0
+        win = fake.created_main_windows[-1]
+        boxes = list(fake.message_boxes)
+        log = list(win.log.lines)
+        tables = (win.summary_table.rows, win.stats_table.rows)
+        gallery = sum(isinstance(w, fake.QLabel) for w in (
+            win.gallery.inner.layout.items if win.gallery.inner else ()))
+        child = win.worker.cmd
+    finally:
+        mp.undo()
+    check(boxes == [], f"gui: message boxes {boxes}")
+    check(any("All done" in ln for ln in log), "gui: no 'All done' in the "
+          f"log pane; its tail: {log[-20:]}")
+    check(tables[0] == 16 and tables[1] >= 3, f"gui: results tables {tables}")
+    check(gallery == 32, f"gui: {gallery} overlay gallery labels, not 32")
+    check(child[1:3] == ["-m", "unetdc_tpu_torch.cli.quantify_droplets_batch"]
+          and child[3:] == argv(work / "gui_out"),
+          f"gui: spawned {child}")
+
+    cli(argv(work / "gui_cli"))
+    torch.cuda.synchronize()
+    cb.reset_launches()
+    entry.main(["--cli", "quantify_droplets_batch"] + argv(work / "gui_entry"))
+    torch.cuda.synchronize()
+    launches = dict(cb.LAUNCHES)
+    for k in ("conv3x3_relu_pool", "dec1_head", "component_tables"):
+        check(launches.get(k, 0) >= 1, f"gui entry: {k} never launched")
+    ref = work / "gui_cli"
+    names = ["summary_per_image.csv", "all_droplets.csv"] + sorted(
+        str(p.relative_to(ref)) for p in (ref / "predicted_masks").iterdir())
+    check(len(names) == 18, f"gui: {len(names) - 2} masks, not 16")
+    equal = {run: all((work / run / n).read_bytes() == (ref / n).read_bytes()
+                      for n in names) for run in ("gui_out", "gui_entry")}
+    check(all(equal.values()), f"gui: artifacts not byte-equal to the "
+          f"in-process CLI run: {equal}")
+    return {"phase": "gui", "card": card, "gui_run_s": gui_s,
+            "seconds": time.perf_counter() - t0, "log_lines": len(log),
+            "summary_rows": tables[0], "stats_rows": tables[1],
+            "gallery_labels": gallery, "child_argv_tail": child[-12:],
+            "files_compared": len(names),
+            "byte_equal_to_in_process_cli": equal,
+            "entry_launches": launches}
+
+
+# ------------------------------------------------------------ profilers --
+def device_profile_phase(rows, card: str):
+    """`utils/device_profile.py::profile_stages(8, 512, int8=True)`: per
+    stage the event ms, device ms and idle share; the kernel forward below
+    the library forward, and its K1 + K2 device time within 10% of the
+    `kernels` line's."""
+    from unetdc_tpu_torch.utils.device_profile import profile_stages
+
+    t0 = time.perf_counter()
+    res = profile_stages(BATCH, 512, int8=True, verbose=False)
+    st = res["stages"]
+    for name, r in st.items():
+        check(all(math.isfinite(r[k]) and r[k] > 0 for k in
+                  ("event_ms", "device_ms")) or name == "resize_u8",
+              f"device_profile: {name} {r}")
+    kern = st["forward_kernels"]["kernels_ms"]
+    k12 = kern.get("K1", 0.0) + kern.get("K2", 0.0)
+    line = sum(r["device_ms"] for r in rows
+               if r["name"].split()[0] in ("K1", "K2"))
+    check(res["forward_kernels"] < res["forward_bf16"],
+          f"device_profile: forward_kernels {res['forward_kernels']} s not "
+          f"below forward_bf16 {res['forward_bf16']} s")
+    check("K1" in kern and "K2" in kern and not st["forward_bf16"][
+        "kernels_ms"], f"device_profile: kernels {kern}, library forward "
+        f"{st['forward_bf16']['kernels_ms']}")
+    check(abs(k12 / line - 1) <= 0.10, f"device_profile: K1 + K2 {k12} ms "
+          f"vs the kernels line's {line} ms")
+    check("K3" in st["cc+regionprops"]["kernels_ms"],
+          "device_profile: K3 not in cc+regionprops")
+    keep = ("total", "img_per_s_device", "total_kernels",
+            "img_per_s_device_kernels", "total_int8", "img_per_s_device_int8",
+            "forward_flops", "forward_mfu", "forward_mfu_bf16", "device")
+    return {"phase": "device_profile", "card": card, "batch": BATCH,
+            "size": 512, "seconds": time.perf_counter() - t0,
+            "stages": st, **{k: res[k] for k in keep},
+            "k1_k2_device_ms": k12, "k1_k2_device_ms_kernels_line": line}
+
+
+def forward_profile_phase(card: str):
+    """`utils/forward_profile.py::profile_forward(8, 512)`: the per-block
+    table; the rows' useful FLOPs sum to `forward_flops` exactly."""
+    from unetdc_tpu_torch.utils.device_profile import forward_flops
+    from unetdc_tpu_torch.utils.forward_profile import profile_forward
+
+    t0 = time.perf_counter()
+    rows = profile_forward(BATCH, 512, verbose=False)
+    blocks = {k: v for k, v in rows.items() if not k.startswith("_")}
+    useful = sum(r["useful_flops"] for r in blocks.values())
+    check(useful == forward_flops(BATCH, 512),
+          f"forward_profile: rows sum to {useful} FLOPs, not "
+          f"{forward_flops(BATCH, 512)}")
+    for name, r in blocks.items():
+        check(math.isfinite(r["ms"]) and r["ms"] > 0
+              and r["bound"] in ("compute", "HBM", "sub-floor"),
+              f"forward_profile: {name} {r}")
+    return {"phase": "forward_profile", "card": card,
+            "seconds": time.perf_counter() - t0, "useful_flops_sum": useful,
+            "rows": rows}
+
+
+def epoch_wall_phase(card: str):
+    """`utils/epoch_wall.py` at its defaults (144 + 64 images at 512x512,
+    batch 8, 4 epochs): its JSON, every number finite; a ratio above 2 is
+    reported, not failed."""
+    from unetdc_tpu_torch.utils.epoch_wall import run
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = run(device="cuda")
+    for k, v in res.items():
+        check(not isinstance(v, float) or math.isfinite(v),
+              f"epoch_wall: {k} = {v}")
+    log = [ln for ln in buf.getvalue().splitlines()
+           if ln.startswith(("epoch", "mask-saving"))]
+    return {"phase": "epoch_wall", "card": card,
+            "seconds": time.perf_counter() - t0, **res, "log": log}
+
+
 # ----------------------------------------------------------------- int8 --
 def int8_phase(work: Path, img_dir: Path, ckpt: Path, cb, bf16_engine):
     """The int8 forward through the port CLI, its sidecar, card vs CPU,
@@ -1731,6 +1890,7 @@ def int8_phase(work: Path, img_dir: Path, ckpt: Path, cb, bf16_engine):
     from unetdc_tpu_torch.io.images import decode_rgb
     from unetdc_tpu_torch.models import unet_int8 as qi
     from unetdc_tpu_torch.pipelines.engine import grayscale_view
+    from unetdc_tpu_torch.utils.device_profile import forward_flops
 
     t0 = time.perf_counter()
     sidecar = Path(str(ckpt) + ".int8calib.npz")
@@ -1789,7 +1949,7 @@ def int8_phase(work: Path, img_dir: Path, ckpt: Path, cb, bf16_engine):
         peak = (torch.cuda.max_memory_allocated() - base) / 1e9
         prof = profile_step(lambda: eng.forward_probs(x), int8_ms,
                             classes=INT8_CLASSES)
-    ops = BATCH * unet_forward_flops(512, 512)
+    ops = forward_flops(BATCH, 512)
     return {"phase": "int8", "seconds": time.perf_counter() - t0,
             "images": 16, "droplets": n_drop, "launches": launches,
             "megastep_ms_first_run": first_ms,
@@ -2334,6 +2494,11 @@ def main() -> int:
         host_split = prof.stage_totals()
         n_drop = check_artifacts(img_dir, work / "out")
         ms = pipe.engine.megastep_ms
+        # before the process's first torch.profiler session: once one has
+        # traced the card, a CUDA child process (the GUI's CLI) leaves
+        # this process's later sessions without device activity
+        card = card_label()
+        gui = gui_phase(work, img_dir, ckpt, cb, card)
         prof.reset_stages()
         buf = io.StringIO()
         t1 = time.perf_counter()
@@ -2362,6 +2527,7 @@ def main() -> int:
             check(name in host_split, f"stage {name} not timed")
         for k in ("conv3x3_relu_pool", "dec1_head", "component_tables"):
             check(launches.get(k, 0) >= 1, f"{k} never launched")
+        emit(gui)
 
         rows, seen = kernel_rows(pipe.engine, img_dir, work / "out",
                                  launches)
@@ -2379,6 +2545,8 @@ def main() -> int:
             check(r["ms"] < r["library_ms"],
                   f"{r['name']}: {r['ms']:.3f} ms, slower than the library "
                   f"call ({r['library_ms']:.3f} ms)")
+        emit(device_profile_phase(rows, card))
+        emit(forward_profile_phase(card))
 
         run_cli(img_dir, ckpt, work / "k32", precision="f32")
         run_plain(img_dir, ckpt, work / "p32", "f32")
@@ -2411,7 +2579,6 @@ def main() -> int:
         emit(train)
         emit(train_step_timing(work))
         emit(card_vs_cpu_step(work))
-        card = card_label()
         tmesh = train_mesh_phase(work)
         tmesh["card"] = card
         int8 = int8_phase(work, img_dir, ckpt, cb, pipe.engine)
@@ -2428,7 +2595,8 @@ def main() -> int:
         i8t = int8_trained_phase(card, cb)
         emit(i8t)
         emit(native_io_phase(work, img_dir, card))
-        paths = {"cli": launches,
+        emit(epoch_wall_phase(card))
+        paths = {"cli": launches, "gui_entry": gui["entry_launches"],
                  "train_quantify": train["quantified_trained_msgpack"][
                      "launches"],
                  "int8_cli": int8["launches"],

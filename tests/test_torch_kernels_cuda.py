@@ -309,3 +309,19 @@ def test_k3_never_takes_the_plain_version(dev, monkeypatch):
     assert cb.LAUNCHES["component_tables"] == before + 1
     with pytest.raises(ValueError):
         ct.component_tables(lab.to(torch.int64))
+
+
+def test_device_split_names_the_kernels(dev):
+    """utils/device_profile.device_split on the card: a K1 call records its
+    kernel by name (K1 in `kernel_ms`), a call that launches nothing gives
+    0 after the one-kernel control records."""
+    from unetdc_tpu_torch.ops import fused_conv as fc
+    from unetdc_tpu_torch.utils.device_profile import device_split, kernel_ms
+
+    x = torch.rand(2, 64, 64, 64, device=dev).to(torch.bfloat16)
+    w = torch.rand(3, 3, 64, 64, device=dev).to(torch.bfloat16)
+    b = torch.rand(64, device=dev)
+    total, by_name, _ = device_split(
+        lambda: fc.conv3x3_relu_pool(x, w, b), reps=3, warmup=1)
+    assert total > 0 and set(kernel_ms(by_name)) == {"K1"}
+    assert device_split(lambda: x, reps=2, warmup=0)[:2] == (0.0, {})

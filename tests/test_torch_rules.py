@@ -31,7 +31,7 @@ bad = sorted(m for m in sys.modules
                                     "unetdc_tpu", "sklearn", "msgpack"))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 59, names
+assert len(names) >= 68, names
 for n in ("losses", "data.augment", "data.dataset", "train.trainer",
           "train.test_phase", "utils.summary", "cli.train",
           "cli.train_dc_focal", "checkpoint.native", "ops.diffmap",
@@ -40,7 +40,10 @@ for n in ("losses", "data.augment", "data.dataset", "train.trainer",
           "cli.quantify_pipline", "cli.quantify", "core.mesh",
           "utils.profiling", "library", "io.native", "ops.bitdepth",
           "ops.blobs", "ops.edt", "ops.watershed", "ops.regionprops",
-          "utils.int8_trained_eval", "utils.native_build"):
+          "utils.int8_trained_eval", "utils.native_build", "gui",
+          "gui.command", "gui.entry", "gui.qt_app", "gui.tk_app",
+          "utils.device_profile", "utils.forward_profile",
+          "utils.epoch_wall"):
     assert "unetdc_tpu_torch." + n in names, n
 """
     r = subprocess.run([sys.executable, "-c", code.format(
@@ -480,3 +483,50 @@ def test_native_build_concurrent_threads(monkeypatch, tmp_path):
     assert len(runs) == 1
     files = [p.name for p in (tmp_path / "build").iterdir()]
     assert len(files) == 1 and files[0].endswith(".so")
+
+
+def _main_calls(tmp_path):
+    """(name, call) of the GUIs' and the profilers' entry points at their
+    default device; the CLI dispatch gets a real checkpoint, since the
+    engine loads it before it takes the device."""
+    from tests.torch_reference import make_decisive_checkpoint
+    from unetdc_tpu_torch.gui import entry, qt_app, tk_app
+    from unetdc_tpu_torch.utils import (device_profile, epoch_wall,
+                                        forward_profile)
+
+    ckpt = tmp_path / "m.pth"
+    make_decisive_checkpoint(str(ckpt), seed=1, img_size=32)
+    (tmp_path / "img").mkdir()
+    return {
+        "qt_app": lambda: qt_app.main([]),
+        "tk_app": lambda: tk_app.main([]),
+        "entry_gui": lambda: entry.main([]),
+        "entry_cli": lambda: entry.main([
+            "--cli", "quantify_droplets_batch", "--img_dir",
+            str(tmp_path / "img"), "--ckpt_path", str(ckpt), "--out_dir",
+            str(tmp_path / "out")]),
+        "device_profile": lambda: device_profile.main(["--size", "32"]),
+        "forward_profile": lambda: forward_profile.main(["--size", "32"]),
+        "epoch_wall": lambda: epoch_wall.main(n_train=2, n_val=2, size=32),
+    }
+
+
+MAINS = ["qt_app", "tk_app", "entry_gui", "entry_cli", "device_profile",
+         "forward_profile", "epoch_wall"]
+
+
+@pytest.mark.parametrize("name", MAINS)
+def test_gui_and_profiler_mains_default_to_cuda(monkeypatch, tmp_path,
+                                                name):
+    """Both GUIs, the frozen entry (GUI and `--cli` dispatch) and the three
+    profilers run on the card unless asked, and raise without one before
+    any window, dataset or run: nothing falls back to the CPU."""
+    import tests.fake_pyside6 as fake
+
+    fake.install(monkeypatch)
+    call = _main_calls(tmp_path)[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    assert fake.created_main_windows == []
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["img", "m.pth"]
