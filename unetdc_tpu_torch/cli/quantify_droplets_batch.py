@@ -14,12 +14,14 @@ Runs on the GPU unless `--device cpu` is given; without a GPU it fails
 rather than fall back to the CPU. `--data_parallel N` splits each batch
 over N devices (N cards; with `--device cpu`, N logical CPU slots), as the
 JAX CLI's flag does; `--batch` must divide over them. `--profile LOG_DIR`
-writes a torch.profiler trace there and prints the stage timings.
+writes a torch.profiler trace of the whole call there (engine load, run,
+reports) and prints the stage timings and the counters.
 """
 
 from __future__ import annotations
 
 import argparse
+import time
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -77,7 +79,9 @@ def main(argv=None):
     from unetdc_tpu_torch.core.mesh import make_mesh
     from unetdc_tpu_torch.pipelines.engine import load_engine
     from unetdc_tpu_torch.pipelines.quantify_batch import BatchQuantifyPipeline
-    from unetdc_tpu_torch.utils.profiling import profile_trace, stage_report
+    from unetdc_tpu_torch.utils.profiling import (counter_report,
+                                                  profile_trace, span,
+                                                  stage_report)
 
     mesh = (make_mesh(args.data_parallel, devices=args.device)
             if args.data_parallel else None)
@@ -85,23 +89,27 @@ def main(argv=None):
     if args.int8 and args.int8_calib != "none":
         calib_path = (args.ckpt_path + ".int8calib.npz"
                       if args.int8_calib == "auto" else args.int8_calib)
-    engine = load_engine(args.ckpt_path, mesh=mesh,
-                         fast=(args.precision == "bf16"),
-                         max_labels=args.max_labels, device=args.device,
-                         quantize="int8" if args.int8 else None,
-                         calib_path=calib_path)
-    pipe = BatchQuantifyPipeline(
-        engine, args.out_dir, batch=args.batch, prob_thresh=args.prob_thresh,
-        min_area=args.min_area, px_per_micron=args.px_per_micron,
-        save_overlays=args.save_overlays,
-        background_radius=args.background_radius)
-    with profile_trace(args.profile):
+    t_start = time.perf_counter_ns()
+    with profile_trace(args.profile), span("quantify.call", root=True):
+        engine = load_engine(args.ckpt_path, mesh=mesh,
+                             fast=(args.precision == "bf16"),
+                             max_labels=args.max_labels, device=args.device,
+                             quantize="int8" if args.int8 else None,
+                             calib_path=calib_path)
+        pipe = BatchQuantifyPipeline(
+            engine, args.out_dir, batch=args.batch,
+            prob_thresh=args.prob_thresh, min_area=args.min_area,
+            px_per_micron=args.px_per_micron,
+            save_overlays=args.save_overlays,
+            background_radius=args.background_radius)
         pipe.run(args.img_dir)
-    pipe.write_reports(skip_excel=args.skip_excel,
-                       skip_histogram=args.skip_histogram)
-    engine.close()
+        with span("quantify.reports"):
+            pipe.write_reports(skip_excel=args.skip_excel,
+                               skip_histogram=args.skip_histogram)
+            engine.close()
     if args.profile:
         print(stage_report())
+        print(counter_report(t_start))
     # stdout contract consumed by the GUIs
     print("\n All done. Outputs are in ", pipe.out_dir)
     return pipe

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from unetdc_tpu_torch.ops.filters import gaussian_filter_scipy
+from unetdc_tpu_torch.utils.profiling import sync
 
 
 @dataclasses.dataclass
@@ -227,8 +228,9 @@ def apply_augment(images: torch.Tensor, masks: torch.Tensor,
     """Apply one batch's draws: images (B, H, W, 3) f32 in [0, 1], masks
     (B, H, W), H == W (true after the resize). Deterministic."""
     dev = images.device
-    d = {f.name: getattr(draws, f.name).to(dev)
-         for f in dataclasses.fields(draws)}
+    fields = dataclasses.fields(draws)
+    with sync("augment_draws", len(fields)):  # one blocking upload each
+        d = {f.name: getattr(draws, f.name).to(dev) for f in fields}
     hw = tuple(masks.shape[1:3])
 
     def sel(flag, a, b):

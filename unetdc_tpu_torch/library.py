@@ -31,6 +31,7 @@ from unetdc_tpu_torch.ops.density import (  # noqa: F401
 from unetdc_tpu_torch.ops.threshold import segmentation_two_thresholds as _stt
 from unetdc_tpu_torch.ops.watershed import (  # noqa: F401
     return_labeling_algorithms, watershed_custom)
+from unetdc_tpu_torch.utils.profiling import span
 
 # engines by (checkpoint path, device)
 _MODEL_CACHE = {}
@@ -47,11 +48,12 @@ def _segmentation_probs(engine, image, dev: torch.device) -> torch.Tensor:
     `resize_linear` to 512, `engine.forward_probs`."""
     from unetdc_tpu_torch.ops.resize import resize_linear
 
-    img = np.asarray(image, np.float32) / 255.0
-    if img.ndim == 2:
-        img = np.stack([img] * 3, axis=-1)
-    with torch.no_grad():
+    with span("library.prepare"), torch.no_grad():
+        img = np.asarray(image, np.float32) / 255.0
+        if img.ndim == 2:
+            img = np.stack([img] * 3, axis=-1)
         x = resize_linear(torch.from_numpy(img).to(dev), (512, 512))[None]
+    with span("library.forward"), torch.no_grad():
         return engine.forward_probs(x)[0, :, :, 0]
 
 
@@ -65,22 +67,28 @@ def segmentation_deep_learning(image, ckpt_path: Optional[str] = None,
 
     As in the JAX package, a grayscale image is broadcast to RGB and the
     sigmoid is applied once (the reference feeds one channel to the
-    3-channel model and applies a second sigmoid)."""
+    3-channel model and applies a second sigmoid).
+
+    While tracing (`utils/profiling.py`), a call is the root span
+    `library.call` over `library.prepare` (float image, upload, resize
+    in), `library.forward` (its enqueue) and `library.fetch` (threshold,
+    resize out, the wait for the mask, the cast)."""
     from unetdc_tpu_torch.ops.resize import resize_mask_linear_round
     from unetdc_tpu_torch.pipelines.engine import load_engine
 
-    dev = resolve_device(device)
-    if ckpt_path is None:
-        ckpt_path = os.path.join(os.path.dirname(__file__),
-                                 "best_UNetDC_focal_model.pth")
-    key = (str(ckpt_path), str(dev))
-    if key not in _MODEL_CACHE:
-        _MODEL_CACHE[key] = load_engine(ckpt_path, device=dev)
-    probs = _segmentation_probs(_MODEL_CACHE[key], image, dev)
-    with torch.no_grad():
-        mask = resize_mask_linear_round((probs > thresh).to(torch.uint8),
-                                        np.shape(image)[:2])
-    return (mask.cpu().numpy() * 255).astype(np.uint8)
+    with span("library.call", root=True):
+        dev = resolve_device(device)
+        if ckpt_path is None:
+            ckpt_path = os.path.join(os.path.dirname(__file__),
+                                     "best_UNetDC_focal_model.pth")
+        key = (str(ckpt_path), str(dev))
+        if key not in _MODEL_CACHE:
+            _MODEL_CACHE[key] = load_engine(ckpt_path, device=dev)
+        probs = _segmentation_probs(_MODEL_CACHE[key], image, dev)
+        with span("library.fetch"), torch.no_grad():
+            mask = resize_mask_linear_round(
+                (probs > thresh).to(torch.uint8), np.shape(image)[:2])
+            return (mask.cpu().numpy() * 255).astype(np.uint8)
 
 
 def segmentation_two_thresholds(image, thresh1, thresh2, *, device="cuda"

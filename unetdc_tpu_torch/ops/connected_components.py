@@ -21,7 +21,8 @@ number of sweeps spreads the ranks, and kernel K3
 
 The segmented scans are plain `torch.cummin`/`cummax` with the run-id
 offset trick (`_seg_scan_cum`). The fixpoint loop is a Python loop with one
-host sync per sweep (`_propagate_counted`).
+host sync per sweep (`_propagate_counted`); while tracing each sweep counts
+`cc.sweeps` and its sync is the span `cc.sync` (`utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 
 from unetdc_tpu_torch.ops.component_tables import CAP, component_tables
 from unetdc_tpu_torch.ops.morphology import shift as _shift1d
+from unetdc_tpu_torch.utils import profiling
 
 _DIAGONALS = ((-1, -1), (-1, 1), (1, -1), (1, 1))
 
@@ -107,7 +109,10 @@ def _propagate_counted(init: torch.Tensor, fg: torch.Tensor, fill,
     lab, k = init, 0
     while True:
         new = _sweep(lab, fg, fill, connectivity, is_min, rids, big)
-        if not bool((new != lab).any()):
+        profiling.count("cc.sweeps")
+        with profiling.span("cc.sync"):
+            changed = bool((new != lab).any())
+        if not changed:
             return lab, k
         lab, k = new, k + 1
 

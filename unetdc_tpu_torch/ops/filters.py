@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from unetdc_tpu_torch.utils.profiling import sync
+
 
 def cv2_gaussian_kernel(ksize: int, sigma: float = 0.0) -> np.ndarray:
     """cv2.getGaussianKernel: if sigma <= 0, sigma = 0.3*((ksize-1)*0.5-1)
@@ -113,10 +115,12 @@ def _correlate_last(x: torch.Tensor, k: np.ndarray) -> torch.Tensor:
     """Correlate the last dim with taps `k` (odd length), reflect edges."""
     r = len(k) // 2
     n = x.shape[-1]
-    idx = torch.from_numpy(_symmetric_index(n, r)).to(x.device)
+    with sync("filter_taps", 2):  # two blocking uploads
+        idx = torch.from_numpy(_symmetric_index(n, r)).to(x.device)
+        taps = torch.from_numpy(k).to(x.device, x.dtype)
     xp = x.index_select(-1, idx)                      # (..., n + 2r)
     win = xp.unfold(-1, len(k), 1)                    # (..., n, K)
-    return win @ torch.from_numpy(k).to(x.device, x.dtype)
+    return win @ taps
 
 
 def gaussian_filter_scipy(img: torch.Tensor, sigma: float,

@@ -21,6 +21,10 @@ the JAX package (which computes them outside any Pallas kernel). Each
 output is a sum of at most two nonzero products per axis for
 INTER_LINEAR, so a library product rounds it as XLA's does up to the
 order of those two terms (within an ulp or two).
+
+Each resize uploads its coefficient tables from host memory, and each such
+upload blocks the host until the device's queue drains: a `sync` span of
+`utils/profiling.py` while tracing.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from unetdc_tpu_torch.utils.profiling import sync
 
 
 def _coeffs_fixed(src: int, dst: int):
@@ -61,8 +67,9 @@ def resize_linear_u8_cv2exact(img: torch.Tensor, out_hw: Tuple[int, int]
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    x0c, x1c, ax0, ax1 = (t(a) for a in _coeffs_fixed(w, ow))
-    y0c, y1c, by0, by1 = (t(a) for a in _coeffs_fixed(h, oh))
+    with sync("resize_tables", 8):
+        x0c, x1c, ax0, ax1 = (t(a) for a in _coeffs_fixed(w, ow))
+        y0c, y1c, by0, by1 = (t(a) for a in _coeffs_fixed(h, oh))
     s = img.to(torch.int32)
     row = (s.index_select(-1, x0c.long()) * ax0
            + s.index_select(-1, x1c.long()) * ax1)        # (..., h, ow) < 2^20
@@ -85,8 +92,9 @@ def resize_nearest(img: torch.Tensor, out_hw: Tuple[int, int],
     oh, ow = out_hw
     dy, dx = dims
     h, w = img.shape[dy], img.shape[dx]
-    iy = torch.from_numpy(_nearest_index(h, oh)).to(img.device)
-    ix = torch.from_numpy(_nearest_index(w, ow)).to(img.device)
+    with sync("resize_tables", 2):
+        iy = torch.from_numpy(_nearest_index(h, oh)).to(img.device)
+        ix = torch.from_numpy(_nearest_index(w, ow)).to(img.device)
     return img.index_select(dy, iy).index_select(dx, ix)
 
 
@@ -122,8 +130,9 @@ def _area_weights(src: int, dst: int) -> np.ndarray:
 def _apply_sep(img: torch.Tensor, wy: np.ndarray, wx: np.ndarray
                ) -> torch.Tensor:
     """Per-axis weight matrices applied to (H, W) or (H, W, C), float32."""
-    wy = torch.from_numpy(wy).to(img.device)
-    wx = torch.from_numpy(wx).to(img.device)
+    with sync("resize_tables", 2):
+        wy = torch.from_numpy(wy).to(img.device)
+        wx = torch.from_numpy(wx).to(img.device)
     x = img.to(torch.float32)
     if x.dim() == 2:
         return wy @ x @ wx.T

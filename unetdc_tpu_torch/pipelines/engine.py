@@ -29,13 +29,19 @@ are reassembled in batch order.
 The engine's `megastep_ms` records the card's time for each batch, from
 CUDA events around the megastep (it includes the per-sweep host syncs of
 the component propagation; under a mesh, the largest per-device sum of its
-groups' times).
+groups' times). While tracing (`utils/profiling.py`), two more events split
+that time into the device spans `dev.preprocess` (rolling ball, resize
+in), `dev.forward` and `dev.components` (threshold, mask resize,
+labelling, tables and what a subclass adds), read with `megastep_ms`'s
+events and taken from the same device under a mesh; `load_engine` is the
+span `engine.load`, and an overflow re-run counts `engine.overflow_reruns`.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
@@ -55,7 +61,26 @@ from unetdc_tpu_torch.ops.component_tables import (component_tables,
 from unetdc_tpu_torch.ops.connected_components import quantify_mask_batch
 from unetdc_tpu_torch.ops.resize import resize_linear_u8_cv2exact
 from unetdc_tpu_torch.ops.rolling_ball import rolling_ball_correction
+from unetdc_tpu_torch.utils import profiling
 from unetdc_tpu_torch.utils.profiling import stage_timer
+
+
+class _StageEnds(threading.local):
+    """(name, CUDA event) at the end of each stage of the megastep running
+    on this thread, while tracing; None otherwise."""
+    ends = None
+
+
+_stage_ends = _StageEnds()
+
+
+def _end_stage(name: str) -> None:
+    ends = _stage_ends.ends
+    if ends is not None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ends.append((name, ev))
+
 
 def grayscale_view(imgs_u8: np.ndarray) -> np.ndarray:
     """A (B,H,W) single-channel view when every pixel of the (B,H,W,3)
@@ -235,7 +260,9 @@ class QuantifyEngine:
         """One batch (a data group's, under a mesh: `mesh` is its row) on
         imgs_u8's device."""
         x = self._preprocess(imgs_u8, background_radius, apply_bg)
+        _end_stage("dev.preprocess")
         probs = self.forward_probs(x, mesh)
+        _end_stage("dev.forward")
         mask = (probs[..., 0] > prob_thresh).to(torch.uint8)
         masks = resize_linear_u8_cv2exact(mask, tuple(out_hw))
         stats = quantify_mask_batch(masks, min_area, max_labels,
@@ -313,25 +340,40 @@ class QuantifyEngine:
                                   apply_bg, max_labels, mesh)
         with torch.cuda.device(x.device):  # events and launches on x's card
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ends = [] if profiling.tracing() else None
+            _stage_ends.ends = ends
             ev[0].record()
-            out = self._megastep(x, thresh, min_area, out_hw, radius,
-                                 apply_bg, max_labels, mesh)
+            try:
+                out = self._megastep(x, thresh, min_area, out_hw, radius,
+                                     apply_bg, max_labels, mesh)
+            finally:
+                _stage_ends.ends = None
             ev[1].record()
-        out["_events"] = (x.device, ev)
+        if ends is not None:
+            ends.append(("dev.components", ev[1]))
+        out["_events"] = (x.device, ev, ends)
         return out
 
     def _to_host(self, outs) -> Dict[str, np.ndarray]:
         per_dev: Dict[torch.device, float] = {}
+        stages: Dict[torch.device, Dict[str, float]] = {}
         host = []
         for out in outs:
             ev = out.pop("_events", None)
             host.append({k: v.cpu().numpy() for k, v in out.items()})
             if ev is not None:
-                dev, (a, b) = ev
+                dev, (a, b), ends = ev
                 b.synchronize()
                 per_dev[dev] = per_dev.get(dev, 0.0) + a.elapsed_time(b)
+                prev, st = a, stages.setdefault(dev, {})
+                for name, e in ends or ():
+                    st[name] = st.get(name, 0.0) + prev.elapsed_time(e)
+                    prev = e
         if per_dev:
-            self.megastep_ms.append(max(per_dev.values()))
+            top = max(per_dev, key=per_dev.get)
+            self.megastep_ms.append(per_dev[top])
+            for name, ms in stages[top].items():
+                profiling.device_span(name, ms)
         if len(host) == 1:
             return host[0]
         return {k: np.concatenate([h[k] for h in host]) for k in host[0]}
@@ -358,6 +400,7 @@ class QuantifyEngine:
             cap = max(2 * self.max_labels, 2)
             while cap < total_max:
                 cap *= 2
+            profiling.count("engine.overflow_reruns")
             print(f"unetdc_tpu_torch: batch has an image with {total_max} "
                   f"components (> max_labels={self.max_labels}); re-running "
                   f"it at cap {cap}", file=sys.stderr)
@@ -396,10 +439,13 @@ def load_engine(ckpt_path: str, mesh: Optional[M.Mesh] = None,
     """Engine from a checkpoint (`load_state_dict`), as the JAX engine's
     `load_engine`. `fast` selects bf16 (default) over f32; `quantize="int8"`
     the calibrated int8 forward with its scales loaded from / saved to the
-    `calib_path` sidecar; `mesh` / `shard_space` the multi-device run."""
-    return QuantifyEngine(load_state_dict(ckpt_path), model_cls=model_cls,
-                          compute_dtype=torch.bfloat16 if fast
-                          else torch.float32, max_labels=max_labels,
-                          device=device, kernels=kernels, quantize=quantize,
-                          calib_path=calib_path, mesh=mesh,
-                          shard_space=shard_space)
+    `calib_path` sidecar; `mesh` / `shard_space` the multi-device run.
+    While tracing, the span `engine.load` (checkpoint read, BatchNorm fold,
+    parameter build and upload)."""
+    with profiling.span("engine.load"):
+        return QuantifyEngine(load_state_dict(ckpt_path), model_cls=model_cls,
+                              compute_dtype=torch.bfloat16 if fast
+                              else torch.float32, max_labels=max_labels,
+                              device=device, kernels=kernels,
+                              quantize=quantize, calib_path=calib_path,
+                              mesh=mesh, shard_space=shard_space)

@@ -17,7 +17,11 @@ green), as the reference draws them, so the overlay PNGs match its pixels.
 
 Stage timers (`utils/profiling.py`) at the JAX package's call sites:
 host_decode, h2d_upload (in the engine), device_fetch,
-host_write_artifacts and host_csv.
+host_write_artifacts and host_csv. While tracing, these are spans with the
+batch (in dispatch order) or the image (in listing order), beside
+`quantify.image_wait` (the main thread waiting for a decoded image),
+`quantify.dispatch` (a batch on the dispatch thread) and
+`quantify.reports` (the writers' last files, the pools' shutdown).
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from unetdc_tpu_torch.io.fastcsv import write_csv
 from unetdc_tpu_torch.io.native import (decode_rgb, encode_png_gray,
                                         encode_png_rgb)
 from unetdc_tpu_torch.pipelines.engine import QuantifyEngine, grayscale_view
-from unetdc_tpu_torch.utils.profiling import stage_timer
+from unetdc_tpu_torch.utils.profiling import span, stage_timer
 
 IMG_SUFFIXES = {".png", ".jpg", ".jpeg", ".tif", ".tiff"}
 _SUM_KEYS = ("sum-0-lo", "sum-0-hi", "sum-1-lo", "sum-1-hi",
@@ -119,6 +123,7 @@ class BatchQuantifyPipeline:
         self.per_image_rows: List[dict] = []
         self.all_props: List[pd.DataFrame] = []
         self._inflight: List = []
+        self._dispatched = 0  # batches dispatched: the next batch id
         self._pending_writes: List = []
         self._dispatch_pool: Optional[ThreadPoolExecutor] = None
         self._write_pool: Optional[ThreadPoolExecutor] = None
@@ -138,21 +143,24 @@ class BatchQuantifyPipeline:
             self._drain(one=True)
         if self._dispatch_pool is None:
             self._dispatch_pool = ThreadPoolExecutor(max_workers=1)
+        k = self._dispatched
+        self._dispatched += 1
 
         def _dispatch():
-            return self.engine.dispatch_batch(
-                grayscale_view(np.stack(batch_imgs)), size_hw,
-                self.prob_thresh, self.min_area, self.background_radius)
+            with span("quantify.dispatch", batch=k):
+                return self.engine.dispatch_batch(
+                    grayscale_view(np.stack(batch_imgs)), size_hw,
+                    self.prob_thresh, self.min_area, self.background_radius)
 
-        self._inflight.append((self._dispatch_pool.submit(_dispatch),
+        self._inflight.append((self._dispatch_pool.submit(_dispatch), k,
                                list(paths), n_valid, size_hw, rgbs))
 
     def _drain(self, one: bool = False):
         while self._inflight:
-            fut, paths, n_valid, size_hw, rgbs = self._inflight.pop(0)
-            with stage_timer("device_fetch"):
+            fut, k, paths, n_valid, size_hw, rgbs = self._inflight.pop(0)
+            with stage_timer("device_fetch", batch=k):
                 host = self.engine.fetch_batch(fut.result(), size_hw)
-            with stage_timer("host_write_artifacts"):
+            with stage_timer("host_write_artifacts", batch=k):
                 self._write_batch_outputs(host, paths, n_valid, rgbs)
             if one:
                 break
@@ -231,12 +239,14 @@ class BatchQuantifyPipeline:
             except ImportError:  # pragma: no cover
                 pass
         def _decode_all():
-            for p in images:
-                with stage_timer("host_decode"):
+            for i, p in enumerate(images):
+                with stage_timer("host_decode", image=i):
                     arr = decode_rgb(p)
                 yield p, arr
 
-        images_iter = Prefetcher(_decode_all(), depth=4)
+        images_iter = Prefetcher(_decode_all(), depth=4,
+                                 wait_span="quantify.image_wait",
+                                 index="image")
         pend_imgs: List[np.ndarray] = []
         pend_paths: List[Path] = []
         pend_size: Optional[Tuple[int, int]] = None
@@ -255,10 +265,11 @@ class BatchQuantifyPipeline:
         if pend_imgs:
             self._flush(pend_imgs, pend_paths, pend_size)
         self._drain()
-        self.finish_writes()
-        for pool in (self._dispatch_pool, self._write_pool):
-            if pool is not None:
-                pool.shutdown(wait=True)
+        with span("quantify.reports"):
+            self.finish_writes()
+            for pool in (self._dispatch_pool, self._write_pool):
+                if pool is not None:
+                    pool.shutdown(wait=True)
         self._dispatch_pool = self._write_pool = None
         return self
 

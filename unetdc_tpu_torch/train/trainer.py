@@ -39,6 +39,12 @@ the whole batch) as one autograd graph, whose backward sums every device's
 gradient into the master weights; the loss and the metrics are computed
 once, on the gathered logits, exactly as on one device. Checkpoints hold
 the master weights, so a run resumes across packages and across meshes.
+
+While tracing (`utils/profiling.py`), a training epoch is the root span
+`train.epoch`; each step's `train.data_wait` (the wait for the next batch),
+`train.device_batch`, `train.augment` and `train.step` (the enqueue of
+forward, backward and Adam) carry its step id, and each point where the
+host blocks on the device is a `sync` span that counts `host_syncs`.
 """
 
 from __future__ import annotations
@@ -73,6 +79,7 @@ from unetdc_tpu_torch.models.unet import (UNet, UNetDC, forward_sharded,
 from unetdc_tpu_torch.ops.resize import (resize_linear_u8_cv2exact,
                                          resize_nearest)
 from unetdc_tpu_torch.ops.rolling_ball import rolling_ball_correction
+from unetdc_tpu_torch.utils.profiling import span, sync
 
 @dataclasses.dataclass
 class TrainConfig:
@@ -185,7 +192,8 @@ class Trainer:
                 hit = self._devbank.get(id(arr))
                 if hit is not None:
                     return hit[0]
-                d = torch.tensor(arr, device=dev)
+                with sync("bank_miss"):
+                    d = torch.tensor(arr, device=dev)
                 if not arr.flags.writeable and \
                         arr.nbytes <= self._devbank_bytes_left:
                     # only arrays the dataset itself caches (read-only): a
@@ -197,8 +205,9 @@ class Trainer:
                                  for a in batch["sample_images"]]),
                     torch.stack([on_device(a)
                                  for a in batch["sample_masks"]]))
-        return (torch.tensor(batch["images"], device=dev),
-                torch.tensor(batch["masks"], device=dev))
+        with sync("batch_upload", 2):
+            return (torch.tensor(batch["images"], device=dev),
+                    torch.tensor(batch["masks"], device=dev))
 
     def preprocess(self, imgs_u8: torch.Tensor, masks_u8: torch.Tensor):
         """SegmentationDataset semantics (utils/data_loader.py:41-68) on the
@@ -224,8 +233,9 @@ class Trainer:
             imgs, masks, valid = M.pad_to_data_axis(imgs, masks, valid,
                                                     self.mesh)
         x, m = self.preprocess(imgs, masks)
-        return (x, m[..., None], torch.from_numpy(valid).to(self.device),
-                valid)
+        with sync("valid_upload"):
+            valid_t = torch.from_numpy(valid).to(self.device)
+        return x, m[..., None], valid_t, valid
 
     # ------------------------------------------------------------ steps --
     def _forward(self, x, keep=None):
@@ -285,7 +295,8 @@ class Trainer:
         exact f64 sums on the host."""
         if not dev_metrics:
             return tuple(np.float64(0.0) for _ in range(3))
-        stacked = torch.stack(dev_metrics).cpu().numpy()
+        with sync("sum_metrics"):
+            stacked = torch.stack(dev_metrics).cpu().numpy()
         return tuple(stacked.astype(np.float64).sum(axis=0))
 
     # ----------------------------------------------------------- epochs --
@@ -299,17 +310,23 @@ class Trainer:
         tot_px = 0
         n_batches = 0
         px = cfg.img_size * cfg.img_size
-        for batch in Prefetcher(data.batches()):
-            sub = torch.Generator().manual_seed(
-                int(torch.randint(0, 2 ** 62, (), generator=gen)))
-            tot_px += batch["n_valid"] * px
-            n_batches += 1
-            x, m, valid, valid_np = self._device_batch(batch)
-            if cfg.augment:
-                x, m2 = augment_batch(sub, x, m[..., 0])
-                m = m2[..., None]
-            dev_metrics.append(self.train_step(x, m, valid, valid_np))
-        tot_loss, tot_dice, tot_correct = self._sum_metrics(dev_metrics)
+        with span("train.epoch", root=True, epoch=epoch):
+            for step, batch in enumerate(Prefetcher(
+                    data.batches(), wait_span="train.data_wait")):
+                sub = torch.Generator().manual_seed(
+                    int(torch.randint(0, 2 ** 62, (), generator=gen)))
+                tot_px += batch["n_valid"] * px
+                n_batches += 1
+                with span("train.device_batch", step=step):
+                    x, m, valid, valid_np = self._device_batch(batch)
+                if cfg.augment:
+                    with span("train.augment", step=step):
+                        x, m2 = augment_batch(sub, x, m[..., 0])
+                    m = m2[..., None]
+                with span("train.step", step=step):
+                    dev_metrics.append(self.train_step(x, m, valid,
+                                                       valid_np))
+            tot_loss, tot_dice, tot_correct = self._sum_metrics(dev_metrics)
         return (tot_loss / max(n_batches, 1), tot_dice / max(n_batches, 1),
                 tot_correct / max(tot_px, 1))
 
