@@ -42,7 +42,11 @@ Phases, each printing one JSON line:
                call launches, host enqueue excluded), bounds, launches,
                the fractions of the bound reached and the time over the
                library call's (K3 also at 512x512); every kernel must beat
-               its library call;
+               its library call; the rolling ball (RB, ksize 50) on the
+               quantifier's (8, 1, 1024, 1024) gray planes and the
+               trainer's permuted (8, 3, 512, 512) view, torch.equal to
+               its plain chain, with the chain's ms (no library call
+               computes it);
                then K3 on scipy-labelled blob batches at the overflow
                caps 8193 and 32769 and on its global-atomics path
                (`k3_overflow` line), each exactly equal to plain;
@@ -601,6 +605,48 @@ def kernel_rows(engine, img_dir, out_dir, launches):
                 labels512, *plan512, cap=cap), reps=5),
             library_ms=cuda_ms(k3_library(labels512, cap)))))
     return rows, seen
+
+
+def rolling_ball_rows(launches):
+    """The rolling-ball kernel (ksize 50) on blob images at the main
+    path's shapes: the quantifier's gray (8, 1, 1024, 1024) planes and the
+    trainer's permuted (8, 3, 512, 512) view. Each held torch.equal to the
+    plain chain; bound: each plane read and written once, and two passes
+    of one min/max a pixel for each column the widest run adds and each
+    footprint row past the first."""
+    import torch
+
+    from unetdc_tpu_torch.ops.rolling_ball import (
+        footprint_table, rolling_ball_correction,
+        rolling_ball_correction_plain)
+    from unetdc_tpu_torch.utils.device_profile import make_blob_images
+
+    k = 50
+    table, (_, _, left, right) = footprint_table(k)
+    gray = torch.from_numpy(make_blob_images(BATCH, 1024, 1024, seed=21,
+                                             gray=True)[..., 0]).cuda()
+    rgb = torch.from_numpy(make_blob_images(BATCH, 512, 512, seed=22)).cuda()
+    rows = []
+    for what, x in (("gray", gray[:, None]),
+                    ("permuted HWC view", rgb.permute(0, 3, 1, 2))):
+        same = torch.equal(rolling_ball_correction(x, k),
+                           rolling_ball_correction_plain(x, k))
+        check(same, f"rolling ball disagrees with its plain version at "
+              f"{tuple(x.shape)}")
+        px = x.numel()
+        rows.append(dict(
+            name="RB rolling_ball", route="cuda",
+            source="unetdc_tpu_torch/csrc/rolling_ball.cu",
+            replaces="none (XLA shifts: unetdc_tpu/ops/rolling_ball.py)",
+            launches=launches.get("rolling_ball", 0), torch_equal=same,
+            ms=cuda_ms(lambda: rolling_ball_correction(x, k)),
+            device_ms=device_ms(lambda: rolling_ball_correction(x, k)),
+            plain_ms=cuda_ms(lambda: rolling_ball_correction_plain(x, k),
+                             reps=5),
+            library_ms=None,
+            **bound(2 * px, 2 * px * (left + right + len(table) - 1), "f32"),
+            shapes=f"planes {tuple(x.shape)} uint8 ({what}), ksize {k}"))
+    return rows
 
 
 def row_shards(t, S, n):
@@ -2004,7 +2050,8 @@ def heatmaps_phase(img_dir: Path, ckpt: Path, cb):
         res = [eng.run_batch(b, b.shape[1:3]) for b in groups]
         torch.cuda.synchronize()
         launches = dict(cb.LAUNCHES)
-        for k in ("conv3x3_relu_pool", "dec1_head", "component_tables"):
+        for k in ("conv3x3_relu_pool", "dec1_head", "component_tables",
+                  "rolling_ball"):
             check(launches.get(k, 0) >= 1, f"{name}: {k} never launched")
         r = {"launches": launches, "megastep_ms": list(eng.megastep_ms),
              "droplets": int(sum(int(x["count"].sum()) for x in res)),
@@ -2525,7 +2572,8 @@ def main() -> int:
         for name in ("host_decode", "h2d_upload", "device_fetch",
                      "host_write_artifacts", "host_csv"):
             check(name in host_split, f"stage {name} not timed")
-        for k in ("conv3x3_relu_pool", "dec1_head", "component_tables"):
+        for k in ("conv3x3_relu_pool", "dec1_head", "component_tables",
+                  "rolling_ball"):
             check(launches.get(k, 0) >= 1, f"{k} never launched")
         emit(gui)
 
@@ -2533,18 +2581,21 @@ def main() -> int:
                                  launches)
         rows += ext_kernel_rows(seen)
         del seen
+        rows += rolling_ball_rows(launches)
         for r in rows:
             r["frac_of_bound"] = r["bound_ms"] / r["ms"]
             r["frac_of_bound_device"] = r["bound_ms"] / r["device_ms"]
-            r["x_library"] = r["ms"] / r["library_ms"]
+            if r["library_ms"] is not None:
+                r["x_library"] = r["ms"] / r["library_ms"]
         emit({"phase": "k3_overflow", "cases": k3_overflow_cases()})
         emit({"phase": "stages",
               "ms": stage_times(pipe.engine, img_dir)})
-        # every kernel must beat its library yardstick
+        # every kernel must beat its library yardstick, where it has one
         for r in rows:
-            check(r["ms"] < r["library_ms"],
-                  f"{r['name']}: {r['ms']:.3f} ms, slower than the library "
-                  f"call ({r['library_ms']:.3f} ms)")
+            if r["library_ms"] is not None:
+                check(r["ms"] < r["library_ms"],
+                      f"{r['name']}: {r['ms']:.3f} ms, slower than the "
+                      f"library call ({r['library_ms']:.3f} ms)")
         emit(device_profile_phase(rows, card))
         emit(forward_profile_phase(card))
 
@@ -2608,7 +2659,8 @@ def main() -> int:
                  "int8_trained": i8t["launches"]}
         keys = {"K1": "conv3x3_relu_pool", "K2": "dec1_head",
                 "K3": "component_tables",
-                "K1_ext": "conv3x3_relu_pool_ext", "K2_ext": "dec1_head_ext"}
+                "K1_ext": "conv3x3_relu_pool_ext", "K2_ext": "dec1_head_ext",
+                "RB": "rolling_ball"}
         for r in rows:
             k = keys[r["name"].split()[0]]
             r["launches_by_path"] = {p: n.get(k, 0) for p, n in paths.items()}

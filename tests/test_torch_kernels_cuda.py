@@ -12,7 +12,9 @@ bit-equal: shards reassembled equal the unsharded kernel.
 Tolerances: f32 kernels differ from cuDNN f32 only in summation order
 (K1 atol 2e-5 / rtol 1e-5, K2 atol 3e-6 / rtol 1e-5, as the JAX package
 holds its Pallas kernels); bf16 outputs may differ by one bf16 rounding step
-where the f32 sums straddle a boundary; K3 is integer and exact.
+where the f32 sums straddle a boundary; K3 and the rolling ball are integer
+(and the rolling ball's normalisation in the plain version's float32 order)
+and exact.
 """
 
 import numpy as np
@@ -325,3 +327,110 @@ def test_device_split_names_the_kernels(dev):
         lambda: fc.conv3x3_relu_pool(x, w, b), reps=3, warmup=1)
     assert total > 0 and set(kernel_ms(by_name)) == {"K1"}
     assert device_split(lambda: x, reps=2, warmup=0)[:2] == (0.0, {})
+
+
+# The rolling ball: the main path's (8, 1, 1024, 1024) gray planes, the
+# trainer's permuted (8, 3, 512, 512) view of HWC images, a (3, 600, 800)
+# stack and (2, 1, 7, 13), smaller than every footprint but ksize 1 and 2.
+RB_SHAPES = ["gray1024", "rgb512_view", "600x800", "7x13"]
+
+
+def _rb_planes(name, kind, dev, seed):
+    shape = {"gray1024": (8, 1, 1024, 1024), "rgb512_view": (8, 512, 512, 3),
+             "600x800": (3, 600, 800), "7x13": (2, 1, 7, 13)}[name]
+    r = np.random.RandomState(seed)
+    if kind == "random":
+        a = r.randint(0, 256, shape)
+    elif kind == "constant":
+        a = np.full(shape, 93)
+    else:
+        a = np.full(shape, 0 if kind == "zeros" else 255)
+    t = torch.from_numpy(a.astype(np.uint8)).to(dev)
+    return t.permute(0, 3, 1, 2) if name == "rgb512_view" else t
+
+
+@pytest.mark.parametrize("shape", RB_SHAPES)
+@pytest.mark.parametrize("radius", [1, 2, 10, 25, 50, 51, 100])
+def test_rolling_ball_matches_plain(dev, radius, shape):
+    """The kernel torch.equal to the plain chain on random, constant (span
+    0), all-0 and all-255 planes."""
+    from unetdc_tpu_torch.ops.rolling_ball import (
+        rolling_ball_correction, rolling_ball_correction_plain)
+
+    for i, kind in enumerate(["random", "constant", "zeros", "ones"]):
+        x = _rb_planes(shape, kind, dev, radius + i)
+        got = rolling_ball_correction(x, radius)
+        torch.cuda.synchronize()
+        assert got.shape == x.shape and got.dtype == torch.uint8
+        assert torch.equal(got, rolling_ball_correction_plain(x, radius)), \
+            (radius, shape, kind)
+
+
+@pytest.mark.parametrize("radius", [300, 2100])
+def test_rolling_ball_large_footprints(dev, radius):
+    """Footprints that take narrow tiles (64 and 8 columns) and, at 2100,
+    more than 48 KB of shared memory a block, on planes smaller than the
+    footprint."""
+    from unetdc_tpu_torch.ops.rolling_ball import (
+        rolling_ball_correction, rolling_ball_correction_plain)
+
+    r = np.random.RandomState(radius)
+    x = torch.from_numpy(r.randint(0, 256, (2, 1, 37, 53)).astype(
+        np.uint8)).to(dev)
+    got = rolling_ball_correction(x, radius)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rolling_ball_correction_plain(x, radius))
+
+
+def test_rolling_ball_offset_view(dev):
+    """Planes that start off any alignment, read through their strides."""
+    from unetdc_tpu_torch.ops.rolling_ball import (
+        rolling_ball_correction, rolling_ball_correction_plain)
+
+    r = np.random.RandomState(16)
+    t = torch.from_numpy(r.randint(0, 256, (2, 70, 91)).astype(np.uint8))
+    x = t.to(dev)[:, 3:, 1:]
+    got = rolling_ball_correction(x, 20)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rolling_ball_correction_plain(x, 20))
+
+
+def test_rolling_ball_counts_once_per_call(dev):
+    """One launch counted and one `rolling_ball.kernel` record a call."""
+    from unetdc_tpu_torch.ops import cuda_build as cb
+    from unetdc_tpu_torch.ops.rolling_ball import rolling_ball_correction
+    from unetdc_tpu_torch.utils import profiling
+
+    x = _rb_planes("600x800", "random", dev, 17)
+    rolling_ball_correction(x, 50)  # first use: build and table upload
+    before = cb.LAUNCHES["rolling_ball"]
+    profiling.reset_trace()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        for _ in range(3):
+            rolling_ball_correction(x, 50)
+        n = sum(c.n for c in profiling.counts("rolling_ball.kernel"))
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["rolling_ball"] == before + 3 and n == 3
+
+
+def test_rolling_ball_never_takes_the_plain_version(dev, monkeypatch):
+    from unetdc_tpu_torch.ops import morphology
+    from unetdc_tpu_torch.ops import rolling_ball as rb
+
+    x = _rb_planes("7x13", "random", dev, 18)
+    ref = rb.rolling_ball_correction_plain(x, 50)
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    monkeypatch.setattr(rb, "rolling_ball_correction_plain", refuse)
+    monkeypatch.setattr(rb, "morph_open", refuse)
+    monkeypatch.setattr(morphology, "_morph", refuse)
+    got = rb.rolling_ball_correction(x, 50)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    with pytest.raises(ValueError):
+        rb.rolling_ball_correction(x.to(torch.float32), 50)
+    with pytest.raises(ValueError, match="ksize <="):
+        rb.rolling_ball_correction(x, rb.MAX_KSIZE + 1)

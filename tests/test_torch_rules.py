@@ -313,6 +313,7 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu(monkeypatch):
     from unetdc_tpu_torch.ops import cuda_build as cb
     from unetdc_tpu_torch.ops import fused_conv as fc
     from unetdc_tpu_torch.ops.component_tables import component_tables
+    from unetdc_tpu_torch.ops.rolling_ball import rolling_ball_correction
 
     def no_build():
         raise AssertionError("built the CUDA library for a CPU tensor")
@@ -322,6 +323,7 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu(monkeypatch):
     x = torch.rand(1, 4, 4, 64)
     fc.conv3x3_relu_pool(x, torch.rand(3, 3, 64, 64), torch.rand(64))
     component_tables(torch.zeros(1, 4, 4, dtype=torch.int32))
+    rolling_ball_correction(torch.zeros(2, 1, 9, 7, dtype=torch.uint8), 5)
     assert sum(cb.LAUNCHES.values()) == 0
 
 

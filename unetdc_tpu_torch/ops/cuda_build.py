@@ -40,6 +40,7 @@ _lib: Optional[ctypes.CDLL] = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # (..., B, H, W, ext, stream); K2 also (top, bottom) edge flags
     "k1_conv3x3_relu_pool_bf16": [_P] * 5 + [_I] * 4 + [_P],
@@ -49,6 +50,10 @@ _SIGNATURES = {
     "k3_component_tables": [_P, _P, _I, _I, _I, _I, ctypes.c_uint64, _I,
                             _I, _P],
     "k3_cluster_max_cap": [_I],
+    # (src, nb, nc, H, W, 4 strides, table, rows, dy_min, dy_max, left,
+    #  right, ring, tw, rb, ero, out, minmax, stream)
+    "rb_rolling_ball": [_P] + [_I] * 4 + [_L] * 4 + [_P] + [_I] * 8
+                       + [_P] * 4,
 }
 
 

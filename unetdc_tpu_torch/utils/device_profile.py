@@ -60,7 +60,8 @@ PEAK_BF16_FLOPS = 989.4e12
 # the port's CUDA kernels, by the name of their __global__ function
 KERNELS = {"K1": re.compile(r"k1_(bf16|f32)_kernel"),
            "K2": re.compile(r"k2_(bf16|f32)_kernel"),
-           "K3": re.compile(r"k3_kernel")}
+           "K3": re.compile(r"k3_kernel"),
+           "RB": re.compile(r"rb_(morph|normalize)_kernel")}
 
 
 def make_blob_images(n, h, w, seed=0, gray=False):
@@ -202,7 +203,7 @@ def device_ms(fn: Callable, reps: int = 20, warmup: int = 3) -> float:
 
 
 def kernel_ms(by_name: Dict[str, float]) -> Dict[str, float]:
-    """{"K1"|"K2"|"K3": ms} of the port's kernels in a `device_split`
+    """{"K1"|"K2"|"K3"|"RB": ms} of the port's kernels in a `device_split`
     breakdown (only those that ran)."""
     out: Dict[str, float] = {}
     for k, rx in KERNELS.items():
